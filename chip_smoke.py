@@ -1,0 +1,401 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (kiss_icp_tpu_torch) on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases, one line each (a failed check raises; the script then exits
+non-zero without printing the final result line):
+  1. card      device name, and name + power limit from nvidia-smi
+  2. build     nvcc builds every csrc/*.cu kernel from the checkout
+  3. k1        normal-equation kernel vs its plain PyTorch version on the card
+  4. k2        27-voxel NN kernel vs its plain version on a 2^19-slot map
+  5. drive     12 frames of the synthetic 64x1024 LiDAR through
+               KissICP.register_frame (the verify drive's config and gates),
+               plus a small 3-frame drive on the card vs the CPU
+  6. probes    empty / all-NaN / out-of-range scans, then a normal scan
+  7. times     each kernel and its plain version at the main path's shapes
+Then one JSON line of per-kernel numbers, and the result line
+{"ok": true, "device": {...}}.
+
+Imports nothing of JAX or of the JAX package. Exits non-zero when no CUDA
+device is available or when run outside a checkout of the repository.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parent
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and f32 rate
+# outside the tensor cores, for the per-kernel lower bounds.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# K1 float operations per masked correspondence: residual, |r|^2 and the
+# Geman-McClure weight (13), lever arms (3), and the 27 weighted sums once
+# J's constant zeros and ones fold (48).
+K1_FLOPS_PER_POINT = 64
+# K2 float operations per candidate point: 3 sub, 3 mul, 2 add (and 6 more
+# to decode a u16 point).
+K2_FLOPS_PER_CANDIDATE = 8
+
+N_FRAMES = 12
+
+
+class CheckFailed(RuntimeError):
+    pass
+
+
+def check(cond, msg: str) -> None:
+    if not bool(cond):
+        raise CheckFailed(msg)
+
+
+def _events_ms(run, calls: int) -> float:
+    """ms per call of `run()`, which makes `calls` calls, by CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def time_ms(fn, reps: int):
+    """(device ms, eager ms) per call of `fn`. Device: `reps` calls captured
+    in one CUDA graph, replayed, so no host work sits between launches.
+    Eager: `reps` calls issued from Python, as the main path issues them."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture stream
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    device = _events_ms(lambda: [graph.replay() for _ in range(3)], 3 * reps)
+    eager = _events_ms(lambda: [fn() for _ in range(reps)], reps)
+    return device, eager
+
+
+def paired_times(kernel_fn, plain_fn, reps_kernel: int, reps_plain: int):
+    """Kernel and plain version timed in turns (kernel, plain, plain,
+    kernel); each one's best (device ms, eager ms)."""
+    k1 = time_ms(kernel_fn, reps_kernel)
+    p1 = time_ms(plain_fn, reps_plain)
+    p2 = time_ms(plain_fn, reps_plain)
+    k2 = time_ms(kernel_fn, reps_kernel)
+    return (min(k1[0], k2[0]), min(k1[1], k2[1])), (min(p1[0], p2[0]), min(p1[1], p2[1]))
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if not (REPO / "kiss_icp_tpu_torch" / "csrc").is_dir():
+        print(f"chip_smoke: {REPO} is not a checkout of the repository "
+              "(kiss_icp_tpu_torch/ is missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+
+    from kiss_icp_tpu_torch.datasets.synthetic import SyntheticDataset
+    from kiss_icp_tpu_torch.kernels import _build, linsys, nn27
+    from kiss_icp_tpu_torch.odometry import KissICP, map_config
+    from kiss_icp_tpu_torch.ops import hash_map, registration, se3, voxel
+    from kiss_icp_tpu_torch.tools.profile_drive import verify_drive_config
+
+    dev = torch.device("cuda")
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    # 1. card
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    smi = smi.splitlines()[0].strip()
+    print(f"card: {name}", flush=True)
+    print(smi, flush=True)
+
+    # 2. build
+    t0 = time.perf_counter()
+    _build.build_all()
+    ptxas = [ln.strip() for ln in _build.build_log().splitlines()
+             if "registers" in ln or "spill" in ln]
+    print(f"build: {time.perf_counter() - t0:.1f} s ({_build.build_dir().name}); "
+          + " | ".join(ptxas), flush=True)
+
+    # 3. k1 vs plain, on the card (tolerance of tests/test_pallas_kernels.py)
+    def k1_case(n, seed, masked=True):
+        rng = np.random.default_rng(seed)
+        src = rng.uniform(-50, 50, (n, 3)).astype(np.float32)
+        tgt = (src + rng.normal(0, 0.3, (n, 3))).astype(np.float32)
+        mask = rng.random(n) > 0.3 if masked else np.zeros(n, bool)
+        return (torch.from_numpy(src).to(dev), torch.from_numpy(tgt).to(dev),
+                torch.from_numpy(mask).to(dev), torch.tensor(0.7, **f32),
+                torch.tensor([3.0, -2.0, 1.0], **f32))
+
+    k1_err = k1_rel = 0.0
+    for n, seed, masked in ((8192, 0, True), (5000, 1, True), (100, 2, True),
+                            (8192, 3, False)):
+        args = k1_case(n, seed, masked)
+        ref = registration.build_linear_system(*args)
+        got = linsys.build_linear_system(*args)
+        again = linsys.build_linear_system(*args)
+        torch.cuda.synchronize()
+        for a, b in ((got.jtj, ref.jtj), (got.jtr, ref.jtr)):
+            check(torch.allclose(a, b, rtol=2e-5, atol=1e-3),
+                  f"k1 n={n}: kernel disagrees with the plain version "
+                  f"(max |diff| {float((a - b).abs().max())})")
+            k1_err = max(k1_err, float((a - b).abs().max()))
+            k1_rel = max(k1_rel, float(((a - b).abs() / b.abs().clamp(min=1.0)).max()))
+        check(int(got.num_correspondences) == int(ref.num_correspondences),
+              f"k1 n={n}: count {int(got.num_correspondences)} != "
+              f"{int(ref.num_correspondences)}")
+        check(torch.equal(got.jtj, again.jtj) and torch.equal(got.jtr, again.jtr),
+              f"k1 n={n}: two launches on the same input differ")
+        if not masked:
+            check(bool(torch.all(got.jtj == 0)) and int(got.num_correspondences) == 0,
+                  "k1 all-masked: jtj must be exactly 0 and the count 0")
+    print(f"k1: 4 cases (8192, 5000, 100, all-masked) within rtol 2e-5 / atol 1e-3 "
+          f"of the plain version, counts exact, reruns bit-identical; "
+          f"max |diff| {k1_err:.3e}, max |diff|/max(|plain|, 1) {k1_rel:.3e}",
+          flush=True)
+
+    # Scans for phases 4-7: the benchmark's synthetic drive at full width.
+    t0 = time.perf_counter()
+    cfg = verify_drive_config()
+    ds = SyntheticDataset(sequence=0, n_scans=N_FRAMES, speed=1.0, accel_frames=30)
+    scans = [ds[i] for i in range(N_FRAMES)]
+    scan_s = time.perf_counter() - t0
+
+    # 4. k2 vs plain on maps built by the port's insert on the card
+    def build_map(storage):
+        mcfg = hash_map.MapConfig(voxel_size=1.0, max_distance=100.0,
+                                  max_points_per_voxel=20, capacity_log2=19,
+                                  probe_length=16, storage=storage)
+        m = hash_map.create_map(mcfg, device=dev)
+        for i in range(3):
+            pts = torch.from_numpy(scans[i][0].astype(np.float32)).to(dev)
+            ds_ = voxel.voxel_downsample(pts, torch.ones(len(pts), dtype=torch.bool,
+                                                         device=dev),
+                                         voxel_size=0.5, capacity=16384)
+            pose = torch.from_numpy(ds.gt_poses[i].astype(np.float32)).to(dev)
+            m, _ = hash_map.insert(mcfg, m, se3.transform(pose, ds_.points), ds_.valid)
+        return mcfg, m
+
+    def k2_queries():
+        pts = torch.from_numpy(scans[3][0].astype(np.float32)).to(dev)
+        src = voxel.voxel_downsample(pts, torch.ones(len(pts), dtype=torch.bool,
+                                                     device=dev),
+                                     voxel_size=1.5, capacity=8192)
+        pose = torch.from_numpy(ds.gt_poses[3].astype(np.float32)).to(dev)
+        noise = torch.from_numpy(np.random.default_rng(4).normal(
+            0, 0.05, (8192, 3)).astype(np.float32)).to(dev)
+        q = (se3.transform(pose, src.points) + noise).contiguous()
+        valid = src.valid.clone()
+        valid[::10] = False  # some invalid queries
+        return q, valid
+
+    queries, qvalid = k2_queries()
+    k2_err = 0.0
+    k2_found = {}
+    for storage in ("f32", "u16"):
+        mcfg, m = build_map(storage)
+        ref = hash_map.query_nearest(mcfg, m, queries, qvalid)
+        got = nn27.query_nearest(mcfg, m, queries, qvalid)
+        torch.cuda.synchronize()
+        check(torch.equal(got.found, ref.found), f"k2 {storage}: found differs")
+        check(torch.equal(got.distances, ref.distances),
+              f"k2 {storage}: distances not bit-equal (max |diff| "
+              f"{float((got.distances - ref.distances).nan_to_num(posinf=0).abs().max())})")
+        check(torch.equal(got.neighbors, ref.neighbors), f"k2 {storage}: neighbors not bit-equal")
+        fin = torch.isfinite(ref.distances)
+        k2_err = max(k2_err, float((got.distances[fin] - ref.distances[fin]).abs().max()),
+                     float((got.neighbors - ref.neighbors).abs().max()))
+        k2_found[storage] = int(got.found.sum())
+        check(k2_found[storage] > 0, f"k2 {storage}: no query found a neighbour")
+    # Empty map, full size.
+    mcfg_e = hash_map.MapConfig(voxel_size=1.0, capacity_log2=19, probe_length=16)
+    got = nn27.query_nearest(mcfg_e, hash_map.create_map(mcfg_e, device=dev),
+                             queries, qvalid)
+    check(not bool(got.found.any()) and bool(torch.isinf(got.distances).all()),
+          "k2 empty map: a query found a neighbour")
+    # Tie: two stored points equidistant from the query; the lowest
+    # (neighbour, lane) index wins (tests/test_pallas_nn.py).
+    mcfg_t = hash_map.MapConfig(voxel_size=1.0, max_distance=30.0,
+                                max_points_per_voxel=4, capacity_log2=10)
+    m_t, _ = hash_map.insert(
+        mcfg_t, hash_map.create_map(mcfg_t, device=dev),
+        torch.tensor([[0.5, 0.5, 0.25], [0.5, 0.5, 0.75]], **f32),
+        torch.ones(2, dtype=torch.bool, device=dev))
+    q_t = torch.tensor([[0.5, 0.5, 0.5]], **f32)
+    v_t = torch.ones(1, dtype=torch.bool, device=dev)
+    got = nn27.query_nearest(mcfg_t, m_t, q_t, v_t)
+    ref = hash_map.query_nearest(mcfg_t, m_t, q_t, v_t)
+    check(torch.equal(got.neighbors, ref.neighbors)
+          and torch.equal(got.neighbors, torch.tensor([[0.5, 0.5, 0.25]], **f32)),
+          f"k2 tie: got {got.neighbors.tolist()}, plain {ref.neighbors.tolist()}")
+    print(f"k2: 8192 queries ({int((~qvalid).sum())} invalid) on 2^19-slot maps "
+          f"built by insert: f32 and u16 found/distances/neighbors bit-equal to "
+          f"the plain version (found {k2_found}); empty map and tie case ok",
+          flush=True)
+
+    # 5. main path: KissICP.register_frame on the card, the verify gates
+    icp = KissICP(cfg)
+    check(icp.device.type == "cuda", "KissICP did not default to the GPU")
+    linsys.build_linear_system.launches = 0
+    nn27.query_nearest.launches = 0
+    frame_ms, iters, drops, poses = [], [], 0, []
+    for pts, stamps in scans:
+        t0 = time.perf_counter()
+        icp.register_frame(pts, stamps)
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        res = icp.last_result
+        iters.append(int(res.num_iterations))
+        drops += int(res.num_dropped_downsample) + int(res.num_dropped_map_voxels)
+        poses.append(icp.last_pose)
+    launches = {"k1": linsys.build_linear_system.launches,
+                "k2": nn27.query_nearest.launches}
+    poses = np.stack(poses)
+    err = np.linalg.norm(poses[:, :3, 3] - ds.gt_poses[:N_FRAMES, :3, 3], axis=1)
+    check(np.all(np.isfinite(poses)), "drive: non-finite pose")
+    check(err.max() < 0.7, f"drive: max translation error {err.max():.4f} m >= 0.7")
+    check(max(iters) < 200, f"drive: {max(iters)} iterations >= 200")
+    check(drops == 0, f"drive: {drops} voxels dropped")
+    check(launches["k1"] > 0 and launches["k2"] > 0,
+          f"drive: a kernel was not launched on the main path ({launches})")
+    steady = frame_ms[1:]
+    p50 = float(np.median(steady))
+    print(f"drive: {N_FRAMES} frames x ~{int(np.mean([len(s[0]) for s in scans]))} "
+          f"points (scans made in {scan_s:.1f} s): max_err={err.max():.4f} m "
+          f"final_err={err[-1]:.4f} m iters={iters} drops={drops} launches={launches}; "
+          f"p50 {p50:.2f} ms/frame ({1e3 / p50:.1f} frames/s) after frame 1, "
+          f"frame 1 {frame_ms[0]:.1f} ms; on {name}, {smi}", flush=True)
+
+    # Small input: the same 3 frames on the card (kernels) and on the CPU
+    # (plain versions) must agree (atol 1e-4, tests/test_pallas_kernels.py).
+    small = verify_drive_config()
+    small.engine.max_points_per_frame = 8192
+    small.engine.frame_capacity = 8192
+    small.engine.source_capacity = 2048
+    small.engine.map_capacity_log2 = 15
+    sds = SyntheticDataset(sequence=1, n_scans=3, n_beams=16, n_azimuth=512,
+                           speed=1.0, accel_frames=6)
+    runs = {}
+    for d in ("cuda", "cpu"):
+        eng = KissICP(small, device=d)
+        runs[d] = [(eng.register_frame(*sds[i]), eng.last_pose,
+                    eng.last_result.num_iterations)[1:] for i in range(3)]
+    gpu_p = np.stack([r[0] for r in runs["cuda"]])
+    cpu_p = np.stack([r[0] for r in runs["cpu"]])
+    small_err = float(np.abs(gpu_p - cpu_p).max())
+    check(small_err < 1e-4, f"small drive: card vs CPU poses differ by {small_err}")
+    check([r[1] for r in runs["cuda"]] == [r[1] for r in runs["cpu"]],
+          "small drive: iteration counts differ between card and CPU")
+    print(f"drive-small: 3 frames (16x512 beams) card vs CPU plain path: "
+          f"max |pose diff| {small_err:.3e}, iterations {[r[1] for r in runs['cuda']]}",
+          flush=True)
+
+    # 6. degradation probes
+    probe = KissICP(cfg)
+    cap = cfg.engine.max_points_per_frame
+    probe.register_frame(*scans[0])
+    probe_poses = []
+    for pts in (np.zeros((0, 3)), np.full((cap, 3), np.nan),
+                np.full((cap, 3), 5000.0)):
+        probe.register_frame(pts)
+        probe_poses.append(probe.last_pose)
+    probe.register_frame(*scans[1])
+    probe_poses.append(probe.last_pose)
+    check(all(np.all(np.isfinite(p)) for p in probe_poses),
+          "probes: a pose went non-finite")
+    print("probes: empty / all-NaN / all-far / recover: all poses finite", flush=True)
+
+    # 7. kernel times at the main path's shapes, on the drive's own data:
+    # the final map, queried by the last frame's ICP source at its final
+    # pose (what the drive's last GN iteration ran), and the normal
+    # equations of those correspondences.
+    mcfg = map_config(cfg)
+    m = icp.state.map
+    res = icp.last_result
+    q2 = se3.transform(icp.state.pose, res.source_points).contiguous()
+    v2 = res.source_valid
+    k2_ms, k2_plain_ms = paired_times(
+        lambda: nn27.query_nearest(mcfg, m, q2, v2),
+        lambda: hash_map.query_nearest(mcfg, m, q2, v2), 100, 10)
+    nn = nn27.query_nearest(mcfg, m, q2, v2)
+    sigma = res.sigma
+    corr = nn.found & (nn.distances < 3.0 * sigma)
+    k1_args = (q2, nn.neighbors, corr, sigma, icp.state.pose[:3, 3].contiguous())
+    k1_ms, k1_plain_ms = paired_times(
+        lambda: linsys.build_linear_system(*k1_args),
+        lambda: registration.build_linear_system(*k1_args), 200, 50)
+    n2 = q2.shape[0]
+    k1_bytes = n2 * (12 + 12 + 1) + (1 + 3) * 4 + (36 + 6 + 1) * 4
+    k1_flops = K1_FLOPS_PER_POINT * int(corr.sum())
+    # Bytes this query needs: queries + mask + outputs, each distinct probe
+    # window's 16 fingerprints, each distinct present slot's key, count and
+    # stored points.
+    k = mcfg.probe_length
+    qvox = voxel.point_to_voxel(q2, mcfg.voxel_size)
+    neigh = qvox[:, None, :] + hash_map.neighbor_shifts(dev)[None]
+    rows = hash_map.window_row(neigh, mcfg.capacity_log2, k)
+    match = hash_map._window_fp(m.fprints, rows, k) == hash_map.fingerprint(neigh)[..., None]
+    slot = (rows << (k.bit_length() - 1)) + hash_map._first_true(match)
+    present = match.any(-1) & torch.all(m.vkeys[slot] == neigh, dim=-1)
+    uslots = torch.unique(slot[present])
+    row_cnt = m.counts[uslots].to(torch.int64)
+    k2_bytes = (n2 * (12 + 1 + 12 + 4 + 1) + int(torch.unique(rows).numel()) * k * 4
+                + int(uslots.numel()) * 16 + int(row_cnt.sum()) * 12)
+    k2_flops = K2_FLOPS_PER_CANDIDATE * int(m.counts[slot[present]].sum())
+
+    def bound(nbytes, flops):
+        tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+        return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+    kernels = []
+    for kname, src, replaces, nl, err_, ms, pms, nb, fl in (
+            ("linsys (K1)", "kiss_icp_tpu_torch/csrc/linsys.cu",
+             "kiss_icp_tpu/ops/pallas_kernels.py:31", launches["k1"], k1_err,
+             k1_ms, k1_plain_ms, k1_bytes, k1_flops),
+            ("nn27 (K2)", "kiss_icp_tpu_torch/csrc/nn27.cu",
+             "kiss_icp_tpu/ops/pallas_nn.py:60", launches["k2"], k2_err,
+             k2_ms, k2_plain_ms, k2_bytes, k2_flops)):
+        b_ms, b_by = bound(nb, fl)
+        # ms / plain_ms: device time per call (CUDA-graph replay); the eager
+        # times add the host work of issuing the call from Python.
+        kernels.append({"name": kname, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": nl, "max_abs_err": err_,
+                        "ms": ms[0], "plain_ms": pms[0], "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": None, "eager_ms": ms[1],
+                        "plain_eager_ms": pms[1], "bytes": nb, "flops": fl})
+        print(f"times: {kname}: {ms[0] * 1e3:.2f} us/call on the device, "
+              f"{ms[1] * 1e3:.2f} us issued eagerly (plain {pms[0] * 1e3:.2f} / "
+              f"{pms[1] * 1e3:.2f} us); bound {b_ms * 1e3:.4f} us by {b_by} "
+              f"({nb} B, {fl} flop); on {name}, {smi}", flush=True)
+
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,144 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked `gpu`: each test asks the `cuda` fixture for the device, which skips
+when `torch.cuda.is_available()` is False (as on a CPU-only machine). On a
+machine with a card:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -m gpu
+
+(`--noconftest`: tests/conftest.py sets up JAX, which this file does not
+need and a machine with only PyTorch lacks.)
+
+Tolerances: K1 (kernels/linsys.py) sums in another order than the plain
+einsum, rtol 2e-5 / atol 1e-3 as tests/test_pallas_kernels.py, count exact,
+and two launches bit-identical (no float atomics). K2 (kernels/nn27.py)
+keeps the plain version's operation order with round-to-nearest intrinsics,
+so found, distances and neighbours are bit-equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from kiss_icp_tpu_torch.config.schema import KISSConfig
+from kiss_icp_tpu_torch.kernels import linsys, nn27
+from kiss_icp_tpu_torch.ops import hash_map as hm
+from kiss_icp_tpu_torch.ops import registration
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the GPU machine)")
+    return torch.device("cuda")
+
+
+def _k1_case(n, seed, masked, dev):
+    rng = np.random.default_rng(seed)
+    src = rng.uniform(-50, 50, (n, 3)).astype(np.float32)
+    tgt = (src + rng.normal(0, 0.3, (n, 3))).astype(np.float32)
+    mask = rng.random(n) > 0.3 if masked else np.zeros(n, bool)
+    return (torch.from_numpy(src).to(dev), torch.from_numpy(tgt).to(dev),
+            torch.from_numpy(mask).to(dev),
+            torch.tensor(0.7, device=dev), torch.tensor([3.0, -2.0, 1.0], device=dev))
+
+
+@pytest.mark.parametrize("n,masked", [(8192, True), (5000, True), (100, True),
+                                      (8192, False)])
+def test_linsys_kernel_matches_plain(cuda, n, masked):
+    args = _k1_case(n, n, masked, cuda)
+    before = linsys.build_linear_system.launches
+    got = linsys.build_linear_system(*args)
+    again = linsys.build_linear_system(*args)
+    ref = registration.build_linear_system(*args)
+    torch.cuda.synchronize()
+    assert linsys.build_linear_system.launches == before + 2
+    torch.testing.assert_close(got.jtj, ref.jtj, rtol=2e-5, atol=1e-3)
+    torch.testing.assert_close(got.jtr, ref.jtr, rtol=2e-5, atol=1e-3)
+    assert int(got.num_correspondences) == int(ref.num_correspondences)
+    assert torch.equal(got.jtj, again.jtj) and torch.equal(got.jtr, again.jtr)
+    if not masked:
+        assert bool(torch.all(got.jtj == 0)) and int(got.num_correspondences) == 0
+
+
+def _map(storage, dev, max_points=20, seed=0):
+    cfg = hm.MapConfig(voxel_size=1.0, max_distance=30.0, max_points_per_voxel=max_points,
+                       capacity_log2=14, storage=storage)
+    m = hm.create_map(cfg, device=dev)
+    rng = np.random.default_rng(seed)
+    for _ in range(3):
+        pts = torch.from_numpy(rng.uniform(-12, 12, (3000, 3)).astype(np.float32)).to(dev)
+        m, _ = hm.insert(cfg, m, pts, torch.ones(3000, dtype=torch.bool, device=dev))
+    return cfg, m
+
+
+@pytest.mark.parametrize("storage", ["f32", "u16"])
+@pytest.mark.parametrize("max_points", [5, 20])
+def test_nn27_kernel_bit_equal_to_plain(cuda, storage, max_points):
+    cfg, m = _map(storage, cuda, max_points)
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.uniform(-14, 14, (4096, 3)).astype(np.float32)).to(cuda)
+    valid = torch.from_numpy(rng.random(4096) > 0.1).to(cuda)
+    before = nn27.query_nearest.launches
+    got = nn27.query_nearest(cfg, m, q, valid)
+    ref = hm.query_nearest(cfg, m, q, valid)
+    torch.cuda.synchronize()
+    assert nn27.query_nearest.launches == before + 1
+    assert torch.equal(got.found, ref.found)
+    assert torch.equal(got.distances, ref.distances)
+    assert torch.equal(got.neighbors, ref.neighbors)
+    assert int(got.found.sum()) > 1000
+
+
+def test_nn27_empty_map_and_tie(cuda):
+    cfg = hm.MapConfig(voxel_size=1.0, capacity_log2=10)
+    got = nn27.query_nearest(cfg, hm.create_map(cfg, device=cuda),
+                             torch.zeros(64, 3, device=cuda),
+                             torch.ones(64, dtype=torch.bool, device=cuda))
+    assert not bool(got.found.any()) and bool(torch.isinf(got.distances).all())
+    cfg = hm.MapConfig(voxel_size=1.0, max_distance=30.0, max_points_per_voxel=4,
+                       capacity_log2=10)
+    pts = torch.tensor([[0.5, 0.5, 0.25], [0.5, 0.5, 0.75]], device=cuda)
+    m, _ = hm.insert(cfg, hm.create_map(cfg, device=cuda), pts,
+                     torch.ones(2, dtype=torch.bool, device=cuda))
+    got = nn27.query_nearest(cfg, m, torch.tensor([[0.5, 0.5, 0.5]], device=cuda),
+                             torch.ones(1, dtype=torch.bool, device=cuda))
+    assert torch.equal(got.neighbors, pts[:1])
+
+
+def test_wrappers_refuse_bad_tensors(cuda):
+    args = list(_k1_case(256, 0, True, cuda))
+    args[0] = args[0].double()
+    with pytest.raises(ValueError):
+        linsys.build_linear_system(*args)
+    cfg, m = _map("f32", cuda)
+    q = torch.zeros(8, 3, device=cuda).t().contiguous().t()  # not contiguous
+    with pytest.raises(ValueError):
+        nn27.query_nearest(cfg, m, q, torch.ones(8, dtype=torch.bool, device=cuda))
+
+
+def test_small_drive_card_matches_cpu(cuda):
+    from kiss_icp_tpu_torch.datasets.synthetic import SyntheticDataset
+    from kiss_icp_tpu_torch.odometry import KissICP
+
+    cfg = KISSConfig()
+    cfg.data.min_range = 1.0
+    cfg.mapping.voxel_size = 1.0
+    cfg.engine.max_points_per_frame = 8192
+    cfg.engine.frame_capacity = 8192
+    cfg.engine.source_capacity = 2048
+    cfg.engine.map_capacity_log2 = 15
+    ds = SyntheticDataset(sequence=1, n_scans=3, n_beams=16, n_azimuth=512,
+                          speed=1.0, accel_frames=6)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        icp = KissICP(cfg, device=dev)
+        runs[dev] = []
+        for i in range(3):
+            icp.register_frame(*ds[i])
+            runs[dev].append((icp.last_pose, icp.last_result.num_iterations))
+    for (pg, ig), (pc, ic) in zip(runs["cuda"], runs["cpu"]):
+        np.testing.assert_allclose(pg, pc, atol=1e-4)
+        assert ig == ic
