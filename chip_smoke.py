@@ -8,12 +8,17 @@ non-zero without printing the final result line):
   1. card      device name, and name + power limit from nvidia-smi
   2. build     nvcc builds every csrc/*.cu kernel from the checkout
   3. k1        normal-equation kernel vs its plain PyTorch version on the card
-  4. k2        27-voxel NN kernel vs its plain version on a 2^19-slot map
+               (n = 0, 1, 100, 5000, 8192, 8193, 100 000, all-masked, unaligned)
+  4. k2        27-voxel NN kernel vs its plain version on 2^19-slot maps
+               (f32/u16, P = 20/5, 100 000 queries, NaN queries, hand-made
+               tie, fingerprint-collision and NaN-point maps, unaligned
+               fingerprint table)
   5. drive     12 frames of the synthetic 64x1024 LiDAR through
                KissICP.register_frame (the verify drive's config and gates),
                plus a small 3-frame drive on the card vs the CPU
   6. probes    empty / all-NaN / out-of-range scans, then a normal scan
-  7. times     each kernel and its plain version at the main path's shapes
+  7. times     each kernel and its plain version at the main path's shapes,
+               beside a launch floor (a one-element add_ timed the same way)
 Then one JSON line of per-kernel numbers, and the result line
 {"ok": true, "device": {...}}.
 
@@ -33,14 +38,17 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and f32 rate
-# outside the tensor cores, for the per-kernel lower bounds.
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, and the f32
+# and f64 rates outside the tensor cores, for the per-kernel lower bounds.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
-# K1 float operations per masked correspondence: residual, |r|^2 and the
-# Geman-McClure weight (13), lever arms (3), and the 27 weighted sums once
-# J's constant zeros and ones fold (48).
-K1_FLOPS_PER_POINT = 64
+F64_FLOPS_PER_S = 34e12
+# K1 operations per masked correspondence, as csrc/linsys.cu does them. f32:
+# residual (3), |r|^2 (5), k + |r|^2, d^2 and the division (3), lever arms
+# (3), w*l (3). f64: the 22 sums (22), their products (18), the 6 cross
+# differences (6).
+K1_F32_FLOPS_PER_POINT = 17
+K1_F64_FLOPS_PER_POINT = 46
 # K2 float operations per candidate point: 3 sub, 3 mul, 2 add (and 6 more
 # to decode a u16 point).
 K2_FLOPS_PER_CANDIDATE = 8
@@ -57,45 +65,11 @@ def check(cond, msg: str) -> None:
         raise CheckFailed(msg)
 
 
-def _events_ms(run, calls: int) -> float:
-    """ms per call of `run()`, which makes `calls` calls, by CUDA events."""
-    import torch
-
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    run()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / calls
-
-
-def time_ms(fn, reps: int):
-    """(device ms, eager ms) per call of `fn`. Device: `reps` calls captured
-    in one CUDA graph, replayed, so no host work sits between launches.
-    Eager: `reps` calls issued from Python, as the main path issues them."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up off the capture stream
-        fn()
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    device = _events_ms(lambda: [graph.replay() for _ in range(3)], 3 * reps)
-    eager = _events_ms(lambda: [fn() for _ in range(reps)], reps)
-    return device, eager
-
-
 def paired_times(kernel_fn, plain_fn, reps_kernel: int, reps_plain: int):
     """Kernel and plain version timed in turns (kernel, plain, plain,
     kernel); each one's best (device ms, eager ms)."""
+    from kiss_icp_tpu_torch.tools.timing import time_ms
+
     k1 = time_ms(kernel_fn, reps_kernel)
     p1 = time_ms(plain_fn, reps_plain)
     p2 = time_ms(plain_fn, reps_plain)
@@ -116,10 +90,11 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
 
     from kiss_icp_tpu_torch.datasets.synthetic import SyntheticDataset
-    from kiss_icp_tpu_torch.kernels import _build, linsys, nn27
+    from kiss_icp_tpu_torch.kernels import _build, cases, linsys, nn27
     from kiss_icp_tpu_torch.odometry import KissICP, map_config
     from kiss_icp_tpu_torch.ops import hash_map, registration, se3, voxel
     from kiss_icp_tpu_torch.tools.profile_drive import verify_drive_config
+    from kiss_icp_tpu_torch.tools.timing import time_ms
 
     dev = torch.device("cuda")
     f32 = dict(dtype=torch.float32, device=dev)
@@ -136,10 +111,8 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     _build.build_all()
-    ptxas = [ln.strip() for ln in _build.build_log().splitlines()
-             if "registers" in ln or "spill" in ln]
     print(f"build: {time.perf_counter() - t0:.1f} s ({_build.build_dir().name}); "
-          + " | ".join(ptxas), flush=True)
+          + " | ".join(_build.ptxas_report()), flush=True)
 
     # 3. k1 vs plain, on the card (tolerance of tests/test_pallas_kernels.py)
     def k1_case(n, seed, masked=True):
@@ -151,9 +124,18 @@ def main() -> int:
                 torch.from_numpy(mask).to(dev), torch.tensor(0.7, **f32),
                 torch.tensor([3.0, -2.0, 1.0], **f32))
 
+    def unaligned(t):
+        """A contiguous copy of `t` one element past an aligned address."""
+        step = t[:1].numel()
+        out = torch.empty(t.numel() + step, dtype=t.dtype, device=dev)[step:].view(t.shape)
+        return out.copy_(t)
+
     k1_err = k1_rel = 0.0
-    for n, seed, masked in ((8192, 0, True), (5000, 1, True), (100, 2, True),
-                            (8192, 3, False)):
+    # n = 0 and all-masked must give exact zeros; n = 1 (seed 1: masked in);
+    # 8193 is one past the main path's width; 100 000 grid-strides.
+    k1_sizes = ((8192, 0, True), (5000, 1, True), (100, 2, True), (8192, 3, False),
+                (0, 0, True), (1, 1, True), (8193, 5, True), (100_000, 6, True))
+    for n, seed, masked in k1_sizes:
         args = k1_case(n, seed, masked)
         ref = registration.build_linear_system(*args)
         got = linsys.build_linear_system(*args)
@@ -170,11 +152,23 @@ def main() -> int:
               f"{int(ref.num_correspondences)}")
         check(torch.equal(got.jtj, again.jtj) and torch.equal(got.jtr, again.jtr),
               f"k1 n={n}: two launches on the same input differ")
-        if not masked:
-            check(bool(torch.all(got.jtj == 0)) and int(got.num_correspondences) == 0,
-                  "k1 all-masked: jtj must be exactly 0 and the count 0")
-    print(f"k1: 4 cases (8192, 5000, 100, all-masked) within rtol 2e-5 / atol 1e-3 "
-          f"of the plain version, counts exact, reruns bit-identical; "
+        if not masked or n == 0:
+            check(bool(torch.all(got.jtj == 0)) and bool(torch.all(got.jtr == 0))
+                  and int(got.num_correspondences) == 0,
+                  f"k1 n={n} all-masked: J^T W J and J^T W r must be exactly 0, count 0")
+    # Inputs off the 16 B / 4 B alignment take the scalar staging path, which
+    # stages the same values: identical bits.
+    args = k1_case(8193, 5, True)
+    got = linsys.build_linear_system(*args)
+    off = linsys.build_linear_system(*(unaligned(a) for a in args[:3]), *args[3:])
+    torch.cuda.synchronize()
+    check(torch.equal(got.jtj, off.jtj) and torch.equal(got.jtr, off.jtr)
+          and int(got.num_correspondences) == int(off.num_correspondences),
+          "k1: unaligned inputs give other bits than aligned ones")
+    print(f"k1: {len(k1_sizes)} cases (n = {', '.join(str(c[0]) for c in k1_sizes)}; "
+          f"one all-masked) within rtol 2e-5 / atol 1e-3 "
+          f"of the plain version, counts exact, reruns bit-identical, unaligned "
+          f"inputs bit-identical to aligned; "
           f"max |diff| {k1_err:.3e}, max |diff|/max(|plain|, 1) {k1_rel:.3e}",
           flush=True)
 
@@ -186,9 +180,9 @@ def main() -> int:
     scan_s = time.perf_counter() - t0
 
     # 4. k2 vs plain on maps built by the port's insert on the card
-    def build_map(storage):
+    def build_map(storage, p=20):
         mcfg = hash_map.MapConfig(voxel_size=1.0, max_distance=100.0,
-                                  max_points_per_voxel=20, capacity_log2=19,
+                                  max_points_per_voxel=p, capacity_log2=19,
                                   probe_length=16, storage=storage)
         m = hash_map.create_map(mcfg, device=dev)
         for i in range(3):
@@ -213,49 +207,97 @@ def main() -> int:
         valid[::10] = False  # some invalid queries
         return q, valid
 
-    queries, qvalid = k2_queries()
+    def many_queries(n):
+        """n raw scan points of frames 3 and 4 in the world frame, with noise:
+        more warps than the card holds at once."""
+        world = [se3.transform(torch.from_numpy(ds.gt_poses[i].astype(np.float32)).to(dev),
+                               torch.from_numpy(scans[i][0].astype(np.float32)).to(dev))
+                 for i in (3, 4)]
+        noise = torch.from_numpy(np.random.default_rng(5).normal(
+            0, 0.05, (n, 3)).astype(np.float32)).to(dev)
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+        valid[::10] = False
+        return (torch.cat(world)[:n] + noise).contiguous(), valid
+
     k2_err = 0.0
     k2_found = {}
-    for storage in ("f32", "u16"):
-        mcfg, m = build_map(storage)
-        ref = hash_map.query_nearest(mcfg, m, queries, qvalid)
-        got = nn27.query_nearest(mcfg, m, queries, qvalid)
+
+    def k2_hold(label, mcfg, m, q, valid):
+        """The kernel against the plain version, bit for bit; the result."""
+        nonlocal k2_err
+        ref = hash_map.query_nearest(mcfg, m, q, valid)
+        got = nn27.query_nearest(mcfg, m, q, valid)
         torch.cuda.synchronize()
-        check(torch.equal(got.found, ref.found), f"k2 {storage}: found differs")
-        check(torch.equal(got.distances, ref.distances),
-              f"k2 {storage}: distances not bit-equal (max |diff| "
+        check(torch.equal(got.found, ref.found), f"k2 {label}: found differs")
+        # Bits, so that NaN distances compare too.
+        check(torch.equal(got.distances.view(torch.int32), ref.distances.view(torch.int32)),
+              f"k2 {label}: distances not bit-equal (max |diff| "
               f"{float((got.distances - ref.distances).nan_to_num(posinf=0).abs().max())})")
-        check(torch.equal(got.neighbors, ref.neighbors), f"k2 {storage}: neighbors not bit-equal")
+        check(torch.equal(got.neighbors, ref.neighbors),
+              f"k2 {label}: neighbors not bit-equal")
         fin = torch.isfinite(ref.distances)
-        k2_err = max(k2_err, float((got.distances[fin] - ref.distances[fin]).abs().max()),
-                     float((got.neighbors - ref.neighbors).abs().max()))
-        k2_found[storage] = int(got.found.sum())
-        check(k2_found[storage] > 0, f"k2 {storage}: no query found a neighbour")
+        if bool(fin.any()):
+            k2_err = max(k2_err,
+                         float((got.distances[fin] - ref.distances[fin]).abs().max()),
+                         float((got.neighbors - ref.neighbors).abs().max()))
+        k2_found[label] = int(got.found.sum())
+        return got
+
+    queries, qvalid = k2_queries()
+    maps = {}
+    for storage in ("f32", "u16"):
+        for p in (20, 5):  # P = 5: rows only 4 B (f32) or 2 B (u16) aligned
+            maps[storage, p] = build_map(storage, p)
+            k2_hold(f"{storage}/P={p}", *maps[storage, p], queries, qvalid)
+            check(k2_found[f"{storage}/P={p}"] > 0,
+                  f"k2 {storage}/P={p}: no query found a neighbour")
+    big_q, big_valid = many_queries(100_000)
+    k2_hold("f32/100000", *maps["f32", 20], big_q, big_valid)
+    check(k2_found["f32/100000"] > 50_000, "k2 100 000 queries: too few found")
+    # The fingerprint table 4 B past a 16 B boundary: the scalar probe path.
+    mcfg, m = maps["f32", 20]
+    m_off = m._replace(fprints=unaligned(m.fprints))
+    k2_hold("f32/scalar-probe", mcfg, m_off, queries, qvalid)
+    # NaN queries: a NaN distance wins the plain version's argmin.
+    q_nan = queries.clone()
+    q_nan[::7, 0] = float("nan")
+    k2_hold("f32/nan-queries", mcfg, m, q_nan, qvalid)
+    del maps, m_off, big_q, big_valid
     # Empty map, full size.
     mcfg_e = hash_map.MapConfig(voxel_size=1.0, capacity_log2=19, probe_length=16)
     got = nn27.query_nearest(mcfg_e, hash_map.create_map(mcfg_e, device=dev),
                              queries, qvalid)
     check(not bool(got.found.any()) and bool(torch.isinf(got.distances).all()),
           "k2 empty map: a query found a neighbour")
-    # Tie: two stored points equidistant from the query; the lowest
-    # (neighbour, lane) index wins (tests/test_pallas_nn.py).
+    # Within-voxel tie: two stored points equidistant from the query; the
+    # lowest (neighbour, lane) index wins (tests/test_pallas_nn.py).
     mcfg_t = hash_map.MapConfig(voxel_size=1.0, max_distance=30.0,
                                 max_points_per_voxel=4, capacity_log2=10)
     m_t, _ = hash_map.insert(
         mcfg_t, hash_map.create_map(mcfg_t, device=dev),
         torch.tensor([[0.5, 0.5, 0.25], [0.5, 0.5, 0.75]], **f32),
         torch.ones(2, dtype=torch.bool, device=dev))
-    q_t = torch.tensor([[0.5, 0.5, 0.5]], **f32)
-    v_t = torch.ones(1, dtype=torch.bool, device=dev)
-    got = nn27.query_nearest(mcfg_t, m_t, q_t, v_t)
-    ref = hash_map.query_nearest(mcfg_t, m_t, q_t, v_t)
-    check(torch.equal(got.neighbors, ref.neighbors)
-          and torch.equal(got.neighbors, torch.tensor([[0.5, 0.5, 0.25]], **f32)),
-          f"k2 tie: got {got.neighbors.tolist()}, plain {ref.neighbors.tolist()}")
-    print(f"k2: 8192 queries ({int((~qvalid).sum())} invalid) on 2^19-slot maps "
-          f"built by insert: f32 and u16 found/distances/neighbors bit-equal to "
-          f"the plain version (found {k2_found}); empty map and tie case ok",
-          flush=True)
+    got = k2_hold("tie-within", mcfg_t, m_t, torch.tensor([[0.5, 0.5, 0.5]], **f32),
+                  torch.ones(1, dtype=torch.bool, device=dev))
+    check(torch.equal(got.neighbors, torch.tensor([[0.5, 0.5, 0.25]], **f32)),
+          f"k2 tie within a voxel: got {got.neighbors.tolist()}")
+    # Hand-made maps (kernels/cases.py): a tie across neighbour voxels (the
+    # lower j wins) and a fingerprint collision (the first match decides).
+    for cname, make in cases.CASES.items():
+        case = make()
+        got = k2_hold(cname, *cases.to_map(case, dev),
+                      torch.from_numpy(case.queries).to(dev),
+                      torch.from_numpy(case.valid).to(dev))
+        check(np.array_equal(got.neighbors.cpu().numpy(), case.neighbors)
+              and np.array_equal(got.distances.cpu().numpy(), case.distances, equal_nan=True)
+              and np.array_equal(got.found.cpu().numpy(), case.found),
+              f"k2 {cname}: got {got.neighbors.tolist()} {got.distances.tolist()}")
+    print(f"k2: {len(k2_found)} cases bit-equal to the plain version in found, "
+          f"distances and neighbours (found per case {k2_found}): 8192 queries "
+          f"({int((~qvalid).sum())} invalid) on 2^19-slot maps built by insert, f32 "
+          f"and u16, P = 20 and 5; 100 000 queries; an unaligned fingerprint table; "
+          f"NaN queries; the within-voxel tie, the cross-voxel tie, the fingerprint "
+          f"collision and a NaN stored point; empty map ok", flush=True)
 
     # 5. main path: KissICP.register_frame on the card, the verify gates
     icp = KissICP(cfg)
@@ -287,7 +329,9 @@ def main() -> int:
           f"points (scans made in {scan_s:.1f} s): max_err={err.max():.4f} m "
           f"final_err={err[-1]:.4f} m iters={iters} drops={drops} launches={launches}; "
           f"p50 {p50:.2f} ms/frame ({1e3 / p50:.1f} frames/s) after frame 1, "
-          f"frame 1 {frame_ms[0]:.1f} ms; on {name}, {smi}", flush=True)
+          f"frame 1 {frame_ms[0]:.1f} ms; on {smi}", flush=True)
+    print("drive-poses: translations per frame (m) "
+          + json.dumps([[float(f"{x:.7g}") for x in p[:3, 3]] for p in poses]), flush=True)
 
     # Small input: the same 3 frames on the card (kernels) and on the CPU
     # (plain versions) must agree (atol 1e-4, tests/test_pallas_kernels.py).
@@ -347,9 +391,30 @@ def main() -> int:
     k1_ms, k1_plain_ms = paired_times(
         lambda: linsys.build_linear_system(*k1_args),
         lambda: registration.build_linear_system(*k1_args), 200, 50)
+    # Launch floor: one launch of PyTorch's one-element elementwise kernel,
+    # timed the same way; no kernel of any size can take less per call.
+    one = torch.zeros(1, **f32)
+    floor_ms = min(time_ms(lambda: one.add_(1.0), 200)[0] for _ in range(2))
+
+    # What the wrappers' host work is made of: one allocation, one slice and
+    # one view, each timed alone on the host clock.
+    def host_us(fn, reps=2000):
+        for _ in range(100):
+            fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e6
+
+    buf = torch.empty(42, **f32)
+    host = {"torch.empty": host_us(lambda: torch.empty(8192, **f32)),
+            "slice": host_us(lambda: buf[:36]), "view": host_us(lambda: buf.view(6, 7))}
+    print("host: per op, host clock: " + ", ".join(f"{k} {v:.2f} us" for k, v in host.items())
+          + f"; on {smi}", flush=True)
     n2 = q2.shape[0]
     k1_bytes = n2 * (12 + 12 + 1) + (1 + 3) * 4 + (36 + 6 + 1) * 4
-    k1_flops = K1_FLOPS_PER_POINT * int(corr.sum())
+    k1_flops = {"f32": K1_F32_FLOPS_PER_POINT * int(corr.sum()),
+                "f64": K1_F64_FLOPS_PER_POINT * int(corr.sum())}
     # Bytes this query needs: queries + mask + outputs, each distinct probe
     # window's 16 fingerprints, each distinct present slot's key, count and
     # stored points.
@@ -364,10 +429,11 @@ def main() -> int:
     row_cnt = m.counts[uslots].to(torch.int64)
     k2_bytes = (n2 * (12 + 1 + 12 + 4 + 1) + int(torch.unique(rows).numel()) * k * 4
                 + int(uslots.numel()) * 16 + int(row_cnt.sum()) * 12)
-    k2_flops = K2_FLOPS_PER_CANDIDATE * int(m.counts[slot[present]].sum())
+    k2_flops = {"f32": K2_FLOPS_PER_CANDIDATE * int(m.counts[slot[present]].sum())}
 
     def bound(nbytes, flops):
-        tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+        tb = nbytes / HBM_BYTES_PER_S * 1e3
+        tf = (flops.get("f32", 0) / F32_FLOPS_PER_S + flops.get("f64", 0) / F64_FLOPS_PER_S) * 1e3
         return (tb, "bytes") if tb >= tf else (tf, "operations")
 
     kernels = []
@@ -384,12 +450,14 @@ def main() -> int:
         kernels.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": nl, "max_abs_err": err_,
                         "ms": ms[0], "plain_ms": pms[0], "bound_ms": b_ms,
-                        "bound_by": b_by, "library_ms": None, "eager_ms": ms[1],
+                        "bound_by": b_by, "library_ms": None, "floor_ms": floor_ms,
+                        "eager_ms": ms[1],
                         "plain_eager_ms": pms[1], "bytes": nb, "flops": fl})
         print(f"times: {kname}: {ms[0] * 1e3:.2f} us/call on the device, "
               f"{ms[1] * 1e3:.2f} us issued eagerly (plain {pms[0] * 1e3:.2f} / "
               f"{pms[1] * 1e3:.2f} us); bound {b_ms * 1e3:.4f} us by {b_by} "
-              f"({nb} B, {fl} flop); on {name}, {smi}", flush=True)
+              f"({nb} B, {fl} flop by type); launch floor {floor_ms * 1e3:.2f} us; "
+              f"on {smi}", flush=True)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -16,10 +16,11 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -92,6 +93,32 @@ def build_log() -> str:
     return path.read_text() if path.is_file() else ""
 
 
+def _kernel_name(mangled: str) -> str:
+    """`linsys_kernel` or `nn27_kernel<1>` from an Itanium-mangled name: the
+    identifier `<len><name>_kernel` whose length prefix matches, then a
+    bool template argument if there is one."""
+    for m in re.finditer(r"(?=(\d+)([a-z][a-z0-9_]*?_kernel)(ILb([01])E)?)", mangled):
+        if int(m.group(1)) == len(m.group(2)):
+            return m.group(2) + (f"<{m.group(4)}>" if m.group(4) else "")
+    return mangled
+
+
+def ptxas_report() -> List[str]:
+    """One line per compiled kernel from the build log: its name (template
+    flag as <0>/<1>), registers, stack, spills and shared memory."""
+    lines, name = [], None
+    for ln in build_log().splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", ln)
+        if entry:
+            name, spill = _kernel_name(entry.group(1)), ""
+        elif name and "spill" in ln:
+            spill = ln.strip()
+        elif name and "Used" in ln and "registers" in ln:
+            lines.append(f"{name}: {ln.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return lines
+
+
 @functools.lru_cache(maxsize=None)
 def library(name: str) -> ctypes.CDLL:
     """The loaded shared library built from csrc/<name>.cu."""
@@ -100,14 +127,27 @@ def library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build_all() / f"{name}.so"))
 
 
-def check_tensor(t, name: str, dtype, shape, device) -> None:
+def check_tensor(t, name: str, dtype, shape, device) -> int:
     """Raise unless `t` is a contiguous `dtype` tensor of `shape` on the CUDA
-    `device`: a kernel reads it through a raw pointer."""
-    if device.type != "cuda" or t.device != device or t.dtype != dtype \
-            or tuple(t.shape) != shape or not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous CUDA {dtype} tensor of "
-                         f"shape {shape} on {device}, got {t.device} {t.dtype} "
-                         f"{tuple(t.shape)} contiguous={t.is_contiguous()}")
+    `device`, aligned to its element size: a kernel reads it through a raw
+    pointer. Returns that pointer."""
+    ptr = t.data_ptr()
+    if t.dtype != dtype or t.shape != shape or t.device != device \
+            or not t.is_contiguous() or ptr % t.element_size():
+        raise ValueError(f"{name}: expected a contiguous, aligned CUDA {dtype} tensor "
+                         f"of shape {shape} on {device}, got {t.device} {t.dtype} "
+                         f"{tuple(t.shape)} contiguous={t.is_contiguous()} "
+                         f"address={ptr:#x}")
+    return ptr
+
+
+def stream_getter():
+    """f(device index) -> the raw cudaStream_t of that device's current
+    stream, as an int: PyTorch's own accessor, which builds no Stream object
+    per call (the wrappers run about 20 times a frame)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream
 
 
 def check_error(code: int, what: str) -> None:

@@ -23,11 +23,24 @@ from kiss_icp_tpu_torch.ops.hash_map import MapConfig, QueryResult, VoxelMap
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.library("nn27").kiss_nn27
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, i, p, p, p, p, i, i, i, i, i,
-                   ctypes.c_float, ctypes.c_float, p, p, p, p]
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [p, p, i, p, p, p, p, i, i, i, i, i, f, f, i, p, p, p, p]
     fn.restype = ctypes.c_int
-    return fn
+    return fn, _build.stream_getter()
+
+
+@functools.lru_cache(maxsize=None)
+def _map_args(cfg: MapConfig):
+    """The kernel's per-map arguments: the table shapes it checks, then
+    (u16, P, probe length, log2 of it, row bits, v, v/65535), with v and
+    v/65535 rounded to f32 exactly as the plain version's tensors."""
+    c, p, k = cfg.capacity, cfg.max_points_per_voxel, cfg.probe_length
+    v32 = np.float32(cfg.voxel_size)
+    dec32 = v32 / np.float32(65535.0)
+    row_bits = cfg.capacity_log2 - k.bit_length() + 1
+    shapes = ((c, 3), (c,), (c, p, 3))
+    return shapes, (int(cfg.storage == "u16"), p, k, k.bit_length() - 1, row_bits,
+                    float(v32), float(dec32))
 
 
 def query_nearest(cfg: MapConfig, m: VoxelMap, queries: torch.Tensor,
@@ -37,32 +50,33 @@ def query_nearest(cfg: MapConfig, m: VoxelMap, queries: torch.Tensor,
     CPU tensors take the plain version; CUDA tensors launch the kernel (and
     count one launch in `query_nearest.launches`), or raise.
     """
-    if queries.device.type == "cpu":
-        return hash_map.query_nearest(cfg, m, queries, valid)
-    n = queries.shape[0]
-    c, p, k = cfg.capacity, cfg.max_points_per_voxel, cfg.probe_length
     dev = queries.device
-    _build.check_tensor(queries, "queries", torch.float32, (n, 3), dev)
-    _build.check_tensor(valid, "valid", torch.bool, (n,), dev)
-    _build.check_tensor(m.vkeys, "vkeys", torch.int32, (c, 3), dev)
-    _build.check_tensor(m.fprints, "fprints", torch.int32, (c,), dev)
-    _build.check_tensor(m.counts, "counts", torch.int32, (c,), dev)
-    _build.check_tensor(m.points, "points", cfg.point_dtype, (c, p, 3), dev)
-    # v and v/65535 rounded to f32 exactly as the plain version's tensors.
-    v32 = np.float32(cfg.voxel_size)
-    dec32 = v32 / np.float32(65535.0)
-    row_bits = cfg.capacity_log2 - k.bit_length() + 1
+    if dev.type == "cpu":
+        return hash_map.query_nearest(cfg, m, queries, valid)
+    if dev.type != "cuda":
+        raise ValueError(f"queries: expected a CPU or CUDA tensor, got {dev}")
+    fn, stream = _entry()
+    (key_shape, slot_shape, row_shape), margs = _map_args(cfg)
+    n = queries.shape[0]
+    check = _build.check_tensor
+    q_ptr = check(queries, "queries", torch.float32, (n, 3), dev)
+    v_ptr = check(valid, "valid", torch.bool, (n,), dev)
+    k_ptr = check(m.vkeys, "vkeys", torch.int32, key_shape, dev)
+    f_ptr = check(m.fprints, "fprints", torch.int32, slot_shape, dev)
+    c_ptr = check(m.counts, "counts", torch.int32, slot_shape, dev)
+    p_ptr = check(m.points, "points", cfg.point_dtype, row_shape, dev)
+    # 16 B loads of the probe window where the table's alignment allows them.
+    vec_probe = int(cfg.probe_length % 4 == 0 and f_ptr % 16 == 0)
+    # Three allocations: on the card's host a view or slice costs about as
+    # much as an allocation (chip_smoke.py prints both costs).
     nn = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    dist = torch.empty((n,), dtype=torch.float32, device=dev)
-    found = torch.empty((n,), dtype=torch.bool, device=dev)
-    err = _entry()(
-        queries.data_ptr(), valid.data_ptr(), n, m.vkeys.data_ptr(),
-        m.fprints.data_ptr(), m.counts.data_ptr(), m.points.data_ptr(),
-        int(cfg.storage == "u16"), p, k, k.bit_length() - 1, row_bits,
-        float(v32), float(dec32), nn.data_ptr(), dist.data_ptr(), found.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_error(err, "nn27 kernel")
-    query_nearest.launches += 1
+    dist = torch.empty(n, dtype=torch.float32, device=dev)
+    found = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        err = fn(q_ptr, v_ptr, n, k_ptr, f_ptr, c_ptr, p_ptr, *margs, vec_probe,
+                 nn.data_ptr(), dist.data_ptr(), found.data_ptr(), stream(dev.index))
+        _build.check_error(err, "nn27 kernel")
+        query_nearest.launches += 1
     return QueryResult(nn, dist, found)
 
 

@@ -9,8 +9,8 @@ profiles the last `--profile` frames with torch.profiler. Prints, for those
 frames: wall ms per frame (host clock; every frame ends in a device sync),
 device busy ms per frame and the device's idle share; host and device ms of
 each stage (the `kiss/<stage>` spans of odometry.register_frame); the device
-ops and the top-level host ops that take the most time. The last line is the
-same as JSON. With `--trace`, the chrome trace is written there.
+ops and the top-level host ops that take the most time, and each of the
+port's own kernels. The last line is the same as JSON. With `--trace`, the chrome trace is written there.
 """
 
 from __future__ import annotations
@@ -41,9 +41,13 @@ def verify_drive_config():
     return cfg
 
 
+# The port's own kernels (csrc/), reported whether or not they make the top 10.
+PORT_KERNELS = ("nn27_kernel", "linsys_kernel")
+
+
 def breakdown(events, frames: int):
     """(device busy ms, {stage: {host_ms, device_ms}}, top device ops, top
-    host ops) per frame, from the profiler's event list. Device busy time is
+    host ops, the port's kernels) per frame, from the profiler's event list. Device busy time is
     the sum of kernel, copy and fill durations on the card (one stream, so
     they do not overlap); GPU-side copies of the profiler spans are left out."""
     dev, host, stages = {}, {}, {}
@@ -62,13 +66,16 @@ def breakdown(events, frames: int):
             n, t = host.get(e.name, (0, 0.0))
             host[e.name] = (n + 1, t + us)
 
-    def top(d):
+    def rows(items):
         return [{"name": k[:90], "calls_per_frame": n / frames,
-                 "ms_per_frame": t / 1e3 / frames}
-                for k, (n, t) in sorted(d.items(), key=lambda kv: -kv[1][1])[:10]]
+                 "ms_per_frame": t / 1e3 / frames} for k, (n, t) in items]
+
+    def top(d):
+        return rows(sorted(d.items(), key=lambda kv: -kv[1][1])[:10])
 
     busy = sum(t for _, t in dev.values()) / 1e3 / frames
-    return busy, stages, top(dev), top(host)
+    ours = rows((k, v) for k, v in dev.items() if any(n in k for n in PORT_KERNELS))
+    return busy, stages, top(dev), top(host), ours
 
 
 def main(argv=None) -> int:
@@ -100,7 +107,7 @@ def main(argv=None) -> int:
         args.trace.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(args.trace / "profile_drive.json"))
 
-    device_ms, stages, top_dev, top_host = breakdown(prof.events(), args.profile)
+    device_ms, stages, top_dev, top_host, ours = breakdown(prof.events(), args.profile)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -111,14 +118,15 @@ def main(argv=None) -> int:
     for stage, t in stages.items():
         print(f"  stage {stage:12s} host {t['host_ms']:8.3f} ms  device "
               f"{t['device_ms']:8.3f} ms per frame")
-    for kind, rows in (("device", top_dev), ("host", top_host)):
+    for kind, rows in (("device", top_dev), ("host", top_host), ("kernel", ours)):
         for k in rows:
             print(f"  {kind} {k['ms_per_frame']:8.3f} ms/frame "
                   f"{k['calls_per_frame']:7.1f} calls  {k['name']}")
     print(json.dumps({"device": name, "card": smi, "frames": args.profile, "wall_ms": wall_ms,
                       "device_ms": device_ms, "idle_share": 1 - device_ms / wall_ms,
                       "iterations": int(icp.last_result.num_iterations),
-                      "stages": stages, "top_device": top_dev, "top_host": top_host}))
+                      "stages": stages, "top_device": top_dev, "top_host": top_host,
+                      "port_kernels": ours}))
     return 0
 
 

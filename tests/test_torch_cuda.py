@@ -9,9 +9,10 @@ machine with a card:
 (`--noconftest`: tests/conftest.py sets up JAX, which this file does not
 need and a machine with only PyTorch lacks.)
 
-Tolerances: K1 (kernels/linsys.py) sums in another order than the plain
-einsum, rtol 2e-5 / atol 1e-3 as tests/test_pallas_kernels.py, count exact,
-and two launches bit-identical (no float atomics). K2 (kernels/nn27.py)
+Tolerances: K1 (kernels/linsys.py) sums the plain version's f32 products
+in f64, in another order than the plain einsum: rtol 2e-5 / atol 1e-3 as
+tests/test_pallas_kernels.py, count exact, and two launches bit-identical
+(no float atomics). K2 (kernels/nn27.py)
 keeps the plain version's operation order with round-to-nearest intrinsics,
 so found, distances and neighbours are bit-equal.
 """
@@ -21,7 +22,7 @@ import pytest
 import torch
 
 from kiss_icp_tpu_torch.config.schema import KISSConfig
-from kiss_icp_tpu_torch.kernels import linsys, nn27
+from kiss_icp_tpu_torch.kernels import cases, linsys, nn27
 from kiss_icp_tpu_torch.ops import hash_map as hm
 from kiss_icp_tpu_torch.ops import registration
 
@@ -45,8 +46,12 @@ def _k1_case(n, seed, masked, dev):
             torch.tensor(0.7, device=dev), torch.tensor([3.0, -2.0, 1.0], device=dev))
 
 
+# n = 0 and an all-masked input give exactly 0; 8193 is one past the main
+# path's width (a ragged last tile); 100 000 makes each block of the
+# cluster grid-stride over many tiles.
 @pytest.mark.parametrize("n,masked", [(8192, True), (5000, True), (100, True),
-                                      (8192, False)])
+                                      (8192, False), (0, True), (1, True),
+                                      (8193, True), (100_000, True)])
 def test_linsys_kernel_matches_plain(cuda, n, masked):
     args = _k1_case(n, n, masked, cuda)
     before = linsys.build_linear_system.launches
@@ -59,19 +64,55 @@ def test_linsys_kernel_matches_plain(cuda, n, masked):
     torch.testing.assert_close(got.jtr, ref.jtr, rtol=2e-5, atol=1e-3)
     assert int(got.num_correspondences) == int(ref.num_correspondences)
     assert torch.equal(got.jtj, again.jtj) and torch.equal(got.jtr, again.jtr)
-    if not masked:
-        assert bool(torch.all(got.jtj == 0)) and int(got.num_correspondences) == 0
+    if not masked or n == 0:
+        assert bool(torch.all(got.jtj == 0)) and bool(torch.all(got.jtr == 0))
+        assert int(got.num_correspondences) == 0
 
 
-def _map(storage, dev, max_points=20, seed=0):
+def _unaligned(t):
+    """A contiguous copy of `t` one element past an aligned address."""
+    buf = torch.empty(t.numel() + t[:1].numel(), dtype=t.dtype, device=t.device)
+    out = buf[t[:1].numel():].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def test_linsys_kernel_unaligned_inputs(cuda):
+    """Inputs off the 16 B (src, tgt) and 4 B (mask) alignment take the
+    scalar staging path, which stages the same values: identical bits."""
+    args = _k1_case(8193, 7, True, cuda)
+    got = linsys.build_linear_system(*args)
+    src, tgt, mask = (_unaligned(a) for a in args[:3])
+    assert src.data_ptr() % 16 and mask.data_ptr() % 4
+    off = linsys.build_linear_system(src, tgt, mask, *args[3:])
+    torch.cuda.synchronize()
+    assert torch.equal(got.jtj, off.jtj) and torch.equal(got.jtr, off.jtr)
+    assert int(got.num_correspondences) == int(off.num_correspondences)
+
+
+def _map(storage, dev, max_points=20, seed=0, capacity_log2=14, probe_length=16):
     cfg = hm.MapConfig(voxel_size=1.0, max_distance=30.0, max_points_per_voxel=max_points,
-                       capacity_log2=14, storage=storage)
+                       capacity_log2=capacity_log2, probe_length=probe_length,
+                       storage=storage)
     m = hm.create_map(cfg, device=dev)
     rng = np.random.default_rng(seed)
     for _ in range(3):
         pts = torch.from_numpy(rng.uniform(-12, 12, (3000, 3)).astype(np.float32)).to(dev)
         m, _ = hm.insert(cfg, m, pts, torch.ones(3000, dtype=torch.bool, device=dev))
     return cfg, m
+
+
+def _assert_nn_bit_equal(cfg, m, q, valid):
+    before = nn27.query_nearest.launches
+    got = nn27.query_nearest(cfg, m, q, valid)
+    ref = hm.query_nearest(cfg, m, q, valid)
+    torch.cuda.synchronize()
+    assert nn27.query_nearest.launches == before + 1
+    assert torch.equal(got.found, ref.found)
+    # Bits, so that NaN distances compare too.
+    assert torch.equal(got.distances.view(torch.int32), ref.distances.view(torch.int32))
+    assert torch.equal(got.neighbors, ref.neighbors)
+    return got
 
 
 @pytest.mark.parametrize("storage", ["f32", "u16"])
@@ -81,15 +122,58 @@ def test_nn27_kernel_bit_equal_to_plain(cuda, storage, max_points):
     rng = np.random.default_rng(1)
     q = torch.from_numpy(rng.uniform(-14, 14, (4096, 3)).astype(np.float32)).to(cuda)
     valid = torch.from_numpy(rng.random(4096) > 0.1).to(cuda)
-    before = nn27.query_nearest.launches
-    got = nn27.query_nearest(cfg, m, q, valid)
-    ref = hm.query_nearest(cfg, m, q, valid)
-    torch.cuda.synchronize()
-    assert nn27.query_nearest.launches == before + 1
-    assert torch.equal(got.found, ref.found)
-    assert torch.equal(got.distances, ref.distances)
-    assert torch.equal(got.neighbors, ref.neighbors)
+    got = _assert_nn_bit_equal(cfg, m, q, valid)
     assert int(got.found.sum()) > 1000
+
+
+@pytest.mark.parametrize("name", sorted(cases.CASES))
+def test_nn27_hand_made_rules(cuda, name):
+    """A tie across neighbour voxels goes to the lower neighbour index; the
+    first fingerprint match in the window decides; a NaN distance wins
+    (kernels/cases.py)."""
+    case = cases.CASES[name]()
+    cfg, m = cases.to_map(case, cuda)
+    got = _assert_nn_bit_equal(cfg, m, torch.from_numpy(case.queries).to(cuda),
+                               torch.from_numpy(case.valid).to(cuda))
+    assert np.array_equal(got.neighbors.cpu().numpy(), case.neighbors)
+    assert np.array_equal(got.distances.cpu().numpy(), case.distances, equal_nan=True)
+    assert np.array_equal(got.found.cpu().numpy(), case.found)
+
+
+@pytest.mark.parametrize("probe_length,shift", [(16, True), (8, False), (4, False),
+                                                 (2, False)])
+def test_nn27_probe_paths(cuda, probe_length, shift):
+    """16 B window loads (probe length a multiple of 4, table 16 B aligned)
+    and the scalar probe (probe length 2, or the table shifted by 4 B)."""
+    cfg, m = _map("f32", cuda, probe_length=probe_length)
+    if shift:
+        m = m._replace(fprints=_unaligned(m.fprints))
+        assert m.fprints.data_ptr() % 16
+    rng = np.random.default_rng(2)
+    q = torch.from_numpy(rng.uniform(-14, 14, (4096, 3)).astype(np.float32)).to(cuda)
+    got = _assert_nn_bit_equal(cfg, m, q, torch.ones(4096, dtype=torch.bool, device=cuda))
+    assert int(got.found.sum()) > 1000
+
+
+def test_nn27_nan_queries(cuda):
+    """NaN queries: a NaN distance wins the plain version's argmin."""
+    cfg, m = _map("f32", cuda)
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(rng.uniform(-14, 14, (4096, 3)).astype(np.float32)).to(cuda)
+    q[::5, 1] = float("nan")
+    got = _assert_nn_bit_equal(cfg, m, q, torch.ones(4096, dtype=torch.bool, device=cuda))
+    assert not bool(got.found[::5].any()) and int(got.found.sum()) > 1000
+
+
+def test_nn27_many_waves(cuda):
+    """100 000 queries against a 2^19-slot map: many more warps than the
+    card holds at once."""
+    cfg, m = _map("u16", cuda, capacity_log2=19)
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.uniform(-14, 14, (100_000, 3)).astype(np.float32)).to(cuda)
+    valid = torch.from_numpy(rng.random(100_000) > 0.1).to(cuda)
+    got = _assert_nn_bit_equal(cfg, m, q, valid)
+    assert int(got.found.sum()) > 50_000
 
 
 def test_nn27_empty_map_and_tie(cuda):

@@ -17,6 +17,7 @@ import torch
 
 from kiss_icp_tpu.ops import hash_map as jhm
 from kiss_icp_tpu.ops import pallas_nn
+from kiss_icp_tpu_torch.kernels import cases
 from kiss_icp_tpu_torch.ops import hash_map as hm
 
 torch.set_num_threads(1)
@@ -176,3 +177,32 @@ def test_query_empty_map_and_tie():
     ref = jhm.query_nearest(jcfg, jm, jnp.asarray(q), jnp.ones(1, bool))
     np.testing.assert_array_equal(got.neighbors.numpy(), np.asarray(ref.neighbors))
     np.testing.assert_array_equal(got.neighbors.numpy(), pts[:1])
+
+
+@pytest.mark.parametrize("name", sorted(cases.CASES))
+def test_query_hand_made_rules_match_jax(name):
+    """The rules the card holds K2 to, on maps built with numpy and handed to
+    both packages: a tie across neighbour voxels goes to the lower
+    neighbour index, the first fingerprint match in a probe window decides
+    (a different key there means the voxel is absent), and a NaN distance
+    wins the argmin (NaN distance, not found)."""
+    case = cases.CASES[name]()
+    cfg, m = cases.to_map(case)
+    got = hm.query_nearest(cfg, m, torch.from_numpy(case.queries),
+                           torch.from_numpy(case.valid))
+    jcfg = jhm.MapConfig(**case.config)
+    a = {k: jnp.asarray(v) for k, v in case.arrays.items()}
+    zero = jnp.zeros((), jnp.int32)
+    jm = jhm.VoxelMap(a["vkeys"], a["fprints"], a["counts"], a["points"],
+                      jnp.sum(a["counts"]), zero, zero)
+    q, valid = jnp.asarray(case.queries), jnp.asarray(case.valid)
+    for ref in (jhm.query_nearest(jcfg, jm, q, valid),
+                pallas_nn.query_nearest_fused(jcfg, jm, q, valid, interpret=True)):
+        f = np.asarray(ref.found)  # JAX leaves the neighbour undefined elsewhere
+        np.testing.assert_array_equal(got.found.numpy(), f)
+        np.testing.assert_allclose(got.distances.numpy(), np.asarray(ref.distances),
+                                   rtol=1e-6)
+        np.testing.assert_array_equal(got.neighbors.numpy()[f], np.asarray(ref.neighbors)[f])
+    np.testing.assert_array_equal(got.found.numpy(), case.found)
+    np.testing.assert_array_equal(got.neighbors.numpy(), case.neighbors)
+    np.testing.assert_array_equal(got.distances.numpy(), case.distances)
