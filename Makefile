@@ -1,5 +1,7 @@
 NATIVE_SRC := native/scan_io.cpp
 NATIVE_LIB := kiss_icp_tpu/io/libkisstpu_native.so
+# The PyTorch port keeps its own copy beside kiss_icp_tpu_torch/io/native.py.
+NATIVE_LIB_TORCH := kiss_icp_tpu_torch/io/libkisstpu_native.so
 CXX ?= g++
 CXXFLAGS := -O3 -std=c++17 -fPIC -shared -pthread -Wall -Wextra
 
@@ -7,9 +9,9 @@ CXXFLAGS := -O3 -std=c++17 -fPIC -shared -pthread -Wall -Wextra
 
 all: native
 
-native: $(NATIVE_LIB)
+native: $(NATIVE_LIB) $(NATIVE_LIB_TORCH)
 
-$(NATIVE_LIB): $(NATIVE_SRC)
+$(NATIVE_LIB) $(NATIVE_LIB_TORCH): $(NATIVE_SRC)
 	$(CXX) $(CXXFLAGS) -o $@ $^
 
 test: native
@@ -25,4 +27,4 @@ bench: native
 	python bench.py
 
 clean:
-	rm -f $(NATIVE_LIB)
+	rm -f $(NATIVE_LIB) $(NATIVE_LIB_TORCH)

@@ -19,6 +19,16 @@ non-zero without printing the final result line):
   6. probes    empty / all-NaN / out-of-range scans, then a normal scan
   7. times     each kernel and its plain version at the main path's shapes,
                beside a launch floor (a one-element add_ timed the same way)
+  8. rebase    hash_map.rebase of the drive's 2^19-slot map (f32, and a u16
+               twin) and of an over-full small map, on the card and on the
+               CPU: tables bit-equal, drop counts equal
+  9. cli       `python -m kiss_icp_tpu_torch.tools.cmd` over 100 full-width
+               synthetic scans, twice, in subprocesses: run A (default
+               rebase trigger) against the JAX golden
+               (kiss_icp_tpu_torch/tools/golden_cli_drive.json), run B with
+               the origin rolled every 16 voxels against run A
+ 10. resume    drive, save_checkpoint, load into a fresh KissICP, one more
+               frame on both: bit-identical (f32 and u16 maps)
 Then one JSON line of per-kernel numbers, and the result line
 {"ok": true, "device": {...}}.
 
@@ -28,9 +38,11 @@ device is available or when run outside a checkout of the repository.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -54,6 +66,70 @@ K1_F64_FLOPS_PER_POINT = 46
 K2_FLOPS_PER_CANDIDATE = 8
 
 N_FRAMES = 12
+# test_rebase.py:170-171: a forced re-base moves world poses by f32
+# re-expression noise only.
+REBASE_ATOL_T, REBASE_ATOL_R = 5e-3, 1e-3
+# The cli phase's run A: frames 1-12 within 1e-3 m of the JAX golden.
+CLI_FRAME_TOL = 1e-3
+
+# The cli phase's subprocess: `tools.cmd.main(argv)`, which `python -m
+# kiss_icp_tpu_torch.tools.cmd` runs, wrapped only to read what the run
+# leaves in memory: the kernels' launch counters (0 when the process
+# starts), each chunk's GN iterations, the frames done at each origin roll,
+# the engine's own time (dispatch_chunk and the poses' read, without the
+# loading of scans in between) and the pipeline's totals.
+CLI_DRIVER = r"""
+import json, sys, time
+from kiss_icp_tpu_torch import odometry, pipeline
+from kiss_icp_tpu_torch.kernels import linsys, nn27
+from kiss_icp_tpu_torch.tools import cmd
+
+seen = {"pipes": [], "iters": [], "rolls": [], "engine_s": 0.0}
+K, P = odometry.KissICP, pipeline.OdometryPipeline
+init, dispatch, read, rebase = P.__init__, K.dispatch_chunk, K.summary_poses, K.maybe_rebase
+
+def p_init(self, *a, **k):
+    init(self, *a, **k)
+    seen["pipes"].append(self)
+
+def k_dispatch(self, *a, **k):
+    t0 = time.perf_counter()
+    s = dispatch(self, *a, **k)
+    seen["engine_s"] += time.perf_counter() - t0
+    seen["iters"].append(s.num_iterations)
+    return s
+
+def k_read(self, s):
+    t0 = time.perf_counter()
+    out = read(self, s)
+    seen["engine_s"] += time.perf_counter() - t0
+    return out
+
+def k_rebase(self, *a, **k):
+    rolled = rebase(self, *a, **k)
+    if rolled:
+        seen["rolls"].append(sum(len(i) for i in seen["iters"]))
+    return rolled
+
+P.__init__, K.dispatch_chunk, K.summary_poses, K.maybe_rebase = p_init, k_dispatch, k_read, k_rebase
+linsys.build_linear_system.launches = 0
+nn27.query_nearest.launches = 0
+rc = cmd.main(sys.argv[1:])
+p = seen["pipes"][0]
+iters = [int(x) for s in seen["iters"] for x in s.cpu().tolist()]
+print("cli-run " + json.dumps({
+    "rc": rc, "launches": {"k1": linsys.build_linear_system.launches,
+                           "k2": nn27.query_nearest.launches},
+    "iterations": iters, "rolls": seen["rolls"],
+    "engine_ms_per_frame": seen["engine_s"] * 1e3 / len(iters),
+    "results": p.results.as_dict(), "results_dir": str(p.results_dir),
+    "sequence": str(p.dataset_sequence), "chunk": p._effective_chunk,
+    "device": str(p.odometry.device), "origin": p.odometry.origin.tolist(),
+    "drops": {"downsample": p.total_dropped_downsample, "map": p.total_dropped_map_voxels,
+              "input": p.total_dropped_input, "oob": p.total_dropped_oob,
+              "rebase": p.odometry.total_rebase_dropped}}))
+sys.exit(rc)
+"""
 
 
 class CheckFailed(RuntimeError):
@@ -459,10 +535,208 @@ def main() -> int:
               f"({nb} B, {fl} flop by type); launch floor {floor_ms * 1e3:.2f} us; "
               f"on {smi}", flush=True)
 
+    phase_rebase(icp, cfg, scans, ds)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_launches = phase_cli(Path(tmp), smi)
+        phase_resume(Path(tmp))
+    for k, key in zip(kernels, ("k1", "k2")):
+        k["launches_cli"] = {run: cli_launches[run][key] for run in ("A", "B")}
+
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _bits(t):
+    """A tensor's bits on the host (u16 crosses as int16, floats compare as
+    int32), so that two tables compare exactly."""
+    import torch
+
+    if t.dtype == torch.uint16:
+        t = t.view(torch.int16)
+    t = t.cpu()
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def phase_rebase(icp, cfg, scans, ds) -> None:
+    """8. hash_map.rebase on the card against the CPU: the drive's own 2^19
+    map (f32), a u16 twin of it (the same slots, points encoded), and an
+    over-full 2^10 map whose rebuild must drop voxels."""
+    import torch
+
+    from kiss_icp_tpu_torch.odometry import map_config
+    from kiss_icp_tpu_torch.ops import hash_map, se3, voxel
+
+    dev = torch.device("cuda")
+    mcfg = map_config(cfg)
+    m32 = icp.state.map
+    mcfg16 = dataclasses.replace(mcfg, storage="u16")
+    keys = m32.vkeys[:, None, :]
+    m16 = m32._replace(points=hash_map.encode_points(
+        mcfg16, hash_map.decode_points(mcfg, m32.points, keys), keys))
+    small = dataclasses.replace(mcfg, capacity_log2=10)
+    m_small = hash_map.create_map(small, device=dev)
+    for i in range(3):
+        pts = torch.from_numpy(scans[i][0].astype(np.float32)).to(dev)
+        d = voxel.voxel_downsample(pts, torch.ones(len(pts), dtype=torch.bool, device=dev),
+                                   voxel_size=0.5, capacity=16384)
+        pose = torch.from_numpy(ds.gt_poses[i].astype(np.float32)).to(dev)
+        m_small, _ = hash_map.insert(small, m_small, se3.transform(pose, d.points), d.valid)
+
+    shift = torch.tensor([7, -5, 3], dtype=torch.int32)
+    report = []
+    for label, c, m in (("f32 2^19", mcfg, m32), ("u16 2^19", mcfg16, m16),
+                        ("over-full 2^10", small, m_small)):
+        m_cpu = hash_map.VoxelMap(*(t.view(torch.int16).cpu().view(torch.uint16)
+                                    if t.dtype == torch.uint16 else t.cpu() for t in m))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, dropped = hash_map.rebase(c, m, shift.to(dev))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ref, ref_dropped = hash_map.rebase(c, m_cpu, shift)
+        check(int(dropped) == int(ref_dropped),
+              f"rebase {label}: card dropped {int(dropped)} voxels, CPU {int(ref_dropped)}")
+        for field, a, b in zip(hash_map.VoxelMap._fields, got, ref):
+            check(torch.equal(_bits(a), _bits(b)), f"rebase {label}: {field} not bit-equal")
+        live = int((m.counts > 0).sum())
+        report.append(f"{label}: {live} live voxels, {int(dropped)} dropped, {ms:.1f} ms")
+    check(int(ref_dropped) > 0, "rebase: the over-full map's rebuild dropped nothing")
+    print("rebase: shift (7, -5, 3), card bit-equal to the CPU in vkeys, fprints, counts, "
+          "points, total_points and the drop counters; " + "; ".join(report)
+          + " (host clock, one call each)", flush=True)
+
+
+def _cli_run(tmp: Path, label: str, config: dict, frames: int, extra=()):
+    """One CLI run in a subprocess on the card; its `cli-run` record."""
+    cfg_file = tmp / f"{label}.yml"
+    cfg_file.write_text(json.dumps(config))  # JSON is YAML
+    out = subprocess.run(
+        [sys.executable, "-c", CLI_DRIVER, str(tmp), "--dataloader", "synthetic",
+         "--sequence", "0", "--config", str(cfg_file), "--n-scans", str(frames), *extra],
+        cwd=REPO, capture_output=True, text=True, timeout=900)
+    check(out.returncode == 0,
+          f"cli {label}: rc {out.returncode}\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("cli-run ")]
+    check(len(lines) == 1, f"cli {label}: no cli-run record in its output")
+    return json.loads(lines[0][len("cli-run "):])
+
+
+def phase_cli(tmp: Path, smi: str) -> dict:
+    """9. The CLI over the JAX golden's drive, run A (default trigger) and
+    run B (origin rolled every 16 voxels, checkpoint at the end). Returns
+    each run's kernel launches."""
+    from kiss_icp_tpu_torch.config.schema import config_to_dict
+    from kiss_icp_tpu_torch.tools.profile_drive import verify_drive_config
+
+    golden = json.loads((REPO / "kiss_icp_tpu_torch" / "tools"
+                         / "golden_cli_drive.json").read_text())
+    base = config_to_dict(verify_drive_config())
+    check(golden["config"] == base, "cli: the golden was made with another config")
+    n = golden["frames"]
+    runs, poses = {}, {}
+    for label, trigger, extra in (("A", base["engine"]["rebase_trigger_voxels"], ()),
+                                  ("B", 16, ("--save-checkpoint",))):
+        config = json.loads(json.dumps(base))
+        config["out_dir"] = str(tmp / label)
+        config["engine"]["rebase_trigger_voxels"] = trigger
+        run = runs[label] = _cli_run(tmp, label, config, n, extra)
+        out = Path(run["results_dir"])
+        seq = run["sequence"]
+        for f in (f"{seq}_poses.npy", f"{seq}_kitti.txt", f"{seq}_tum.txt", f"{seq}_gt.npy",
+                  f"{seq}_gt_kitti.txt", f"{seq}_gt_tum.txt", "config.yml",
+                  "result_metrics.log"):
+            check((out / f).is_file(), f"cli {label}: {f} was not written")
+        check((tmp / label / "latest").resolve() == out.resolve(),
+              f"cli {label}: `latest` does not point at the run")
+        check(run["chunk"] == 16 and run["device"].startswith("cuda"),
+              f"cli {label}: chunk {run['chunk']} on {run['device']}")
+        check(not any(run["drops"].values()), f"cli {label}: drops {run['drops']}")
+        check(run["launches"]["k1"] > 0 and run["launches"]["k2"] > 0,
+              f"cli {label}: a kernel was not launched ({run['launches']})")
+        poses[label] = np.load(out / f"{seq}_poses.npy")
+        check(poses[label].shape == (n, 4, 4) and np.all(np.isfinite(poses[label])),
+              f"cli {label}: poses {poses[label].shape}")
+
+    a, b = runs["A"], runs["B"]
+    gold = np.asarray(golden["poses"]).reshape(n, 3, 4)
+    diff = np.linalg.norm(poses["A"][:, :3, 3] - gold[:, :, 3], axis=1)
+    check(np.all(diff[:12] <= CLI_FRAME_TOL),
+          f"cli A: frames 1-12 depart from the JAX golden by {diff[:12].max():.3e} m "
+          f"> {CLI_FRAME_TOL:.0e}")
+    ate = a["results"]["Absolute Trajectory Error (ATE)"]
+    check(abs(ate - golden["ate_jax"]) <= golden["ate_margin"],
+          f"cli A: ATE {ate:.4f} m, JAX {golden['ate_jax']:.4f} +- {golden['ate_margin']:.4f}")
+    it, jit = sum(a["iterations"]), sum(golden["iterations"])
+    check(abs(it - jit) <= 0.05 * jit, f"cli A: {it} GN iterations, JAX {jit}")
+    check(not a["rolls"], f"cli A: the default trigger rolled the origin at {a['rolls']}")
+
+    check(len(b["rolls"]) >= 3, f"cli B: the origin rolled {len(b['rolls'])} times")
+    with np.load(Path(b["results_dir"]) / "checkpoint.npz") as ck:
+        origin = ck["extra_origin"]
+    check(np.any(origin != 0) and np.array_equal(origin, b["origin"]),
+          f"cli B: checkpoint origin {origin.tolist()}, run {b['origin']}")
+    first = b["rolls"][0]
+    check(np.array_equal(poses["B"][:first], poses["A"][:first]),
+          f"cli B: poses before the first roll (frame {first}) differ from run A")
+    nxt = slice(first, first + 16)
+    dt = np.abs(poses["B"][nxt, :3, 3] - poses["A"][nxt, :3, 3]).max()
+    dr = np.abs(poses["B"][nxt, :3, :3] - poses["A"][nxt, :3, :3]).max()
+    check(dt <= REBASE_ATOL_T and dr <= REBASE_ATOL_R,
+          f"cli B: the 16 frames after the first roll depart from run A by {dt:.3e} m, "
+          f"{dr:.3e} in rotation")
+    ate_b = b["results"]["Absolute Trajectory Error (ATE)"]
+    check(abs(ate_b - ate) <= 0.02, f"cli B: ATE {ate_b:.4f} m against run A's {ate:.4f}")
+
+    for label, run in runs.items():
+        r = run["results"]
+        print(f"cli {label}: {n} frames x 64x1024 beams, chunk {run['chunk']}: "
+              f"Average Frequency (no warmup) {r['Average Frequency (no warmup)']:.3f} Hz, "
+              f"Average Runtime {r['Average Runtime']:.3f} ms (scan loading included), "
+              f"engine {run['engine_ms_per_frame']:.3f} ms/frame (dispatch and poses read "
+              f"only); ATE {r['Absolute Trajectory Error (ATE)']:.6f} m; "
+              f"GN iterations {sum(run['iterations'])}; origin rolls at frames "
+              f"{run['rolls']}; launches {run['launches']}; on {smi}", flush=True)
+    print(f"cli: A against the JAX golden: frames 1-12 within {diff[:12].max():.3e} m "
+          f"(limit {CLI_FRAME_TOL:.0e}; the port's CPU run "
+          f"{max(golden['port_cpu_translation_diff'][:12]):.3e}), ATE {ate:.6f} m against JAX "
+          f"{golden['ate_jax']:.6f} (margin {golden['ate_margin']}), iterations {it} "
+          f"against {jit}; B against A: bit-identical to frame {first}, the next 16 "
+          f"within {dt:.3e} m / {dr:.3e}, ATE {ate_b:.6f} m", flush=True)
+    return {label: run["launches"] for label, run in runs.items()}
+
+
+def phase_resume(tmp: Path) -> None:
+    """10. Resume on the card: drive, save_checkpoint, load into a fresh
+    KissICP, one more frame on both: the same pose bits and origin (f32 map
+    with the verify config, then a u16 map)."""
+    from kiss_icp_tpu_torch.datasets.synthetic import SyntheticDataset
+    from kiss_icp_tpu_torch.odometry import KissICP
+    from kiss_icp_tpu_torch.tools.profile_drive import verify_drive_config
+
+    ds = SyntheticDataset(sequence=0, n_scans=21)
+    scans = [ds[i] for i in range(21)]
+    report = []
+    for storage, frames, trigger in (("f32", 20, 8), ("u16", 20, 4)):
+        cfg = verify_drive_config()
+        cfg.engine.map_storage = storage
+        cfg.engine.rebase_trigger_voxels = trigger
+        a = KissICP(cfg)
+        for f, t in scans[:frames]:
+            a.register_frame(f, t)
+        check(np.any(a.origin != 0), f"resume {storage}: the origin never rolled")
+        path = tmp / f"resume_{storage}.npz"
+        a.save_checkpoint(path)
+        b = KissICP(cfg)
+        b.load_checkpoint(path)
+        a.register_frame(*scans[frames])
+        b.register_frame(*scans[frames])
+        check(np.array_equal(a.last_pose, b.last_pose) and np.array_equal(a.origin, b.origin),
+              f"resume {storage}: frame {frames + 1} differs after the reload")
+        report.append(f"{storage}: {frames} frames, origin {a.origin.tolist()}")
+    print("resume: save_checkpoint, load into a fresh KissICP, one more frame: pose and "
+          "origin bit-identical (" + "; ".join(report) + ")", flush=True)
 
 
 if __name__ == "__main__":

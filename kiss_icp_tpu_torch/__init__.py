@@ -21,6 +21,6 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
-__version__ = "0.1.0"
+from kiss_icp_tpu_torch.version import __version__  # noqa: E402
 
 __all__ = ["__version__"]

@@ -39,13 +39,27 @@ def _expected(config: KISSConfig):
             ((), i32), ((), i32), ((), i32)]
 
 
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    # PyTorch has few CUDA kernels for uint16: u16 points cross as int16 bits.
+    if t.dtype == torch.uint16:
+        return t.view(torch.int16).cpu().numpy().view(np.uint16)
+    return t.detach().cpu().numpy()
+
+
+def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A copy of `a` on `dev` (u16 crosses as its int16 bits)."""
+    if a.dtype == np.uint16:
+        return torch.tensor(a.view(np.int16), device=dev).view(torch.uint16)
+    return torch.tensor(a, device=dev)
+
+
 def state_to_numpy(state: OdometryState) -> List[np.ndarray]:
     """The state as 12 numpy arrays, in the JAX leaf order."""
     th, m = state.threshold, state.map
     tensors = [state.pose, state.delta, th.model_sse, th.sse_comp,
                th.num_samples, m.vkeys, m.fprints, m.counts, m.points,
                m.total_points, m.num_dropped_voxels, m.num_oob_points]
-    return [t.detach().cpu().numpy() for t in tensors]
+    return [_to_numpy(t) for t in tensors]
 
 
 def state_from_numpy(leaves: Sequence[np.ndarray], config: KISSConfig,
@@ -62,7 +76,7 @@ def state_from_numpy(leaves: Sequence[np.ndarray], config: KISSConfig,
             raise ValueError(f"state array {name}: got {a.shape}/{a.dtype}, the "
                              f"config implies {shape}/{np.dtype(dtype)}")
         # A copy: the port updates the map in place, never the caller's arrays.
-        arrays.append(torch.tensor(a, device=dev))
+        arrays.append(_to_device(a, dev))
     (pose, delta, sse, comp, ns, vkeys, fprints, counts, points, total,
      dropped, oob) = arrays
     return OdometryState(

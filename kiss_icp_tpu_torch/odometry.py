@@ -9,15 +9,24 @@ read one scalar per iteration.
 
 The map is updated IN PLACE (2^19 slots by default): the state passed to
 `register_frame` shares its map tensors with the state it returns and must
-not be used afterwards.
+not be used afterwards. A frame's result and the state it returns share the
+pose tensor, so nothing updates a pose in place: `rebase_state` builds a new
+one.
 
-`KissICP` is the stateful wrapper (numpy in/out). Entry points run on the GPU
-unless the caller asks for the CPU: `device=None` means CUDA and fails loudly
-on a machine without a card.
+`make_chunked_step` advances K frames a call (PyTorch has no `lax.scan`: a
+Python loop over the same `register_frame`, state on the device throughout),
+and `rebase_state` rolls the world origin forward so that long drives stay
+inside the map's key envelope.
+
+`KissICP` is the stateful wrapper (numpy in/out), with the rolling origin,
+the chunked API and checkpoints. Entry points run on the GPU unless the
+caller asks for the CPU: `device=None` means CUDA and fails loudly on a
+machine without a card.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -192,6 +201,103 @@ def register_frame(
     return new_state, result
 
 
+def rebase_state(config: KISSConfig, state: OdometryState, shift_vox
+                 ) -> Tuple[OdometryState, torch.Tensor]:
+    """Roll the world origin forward by `shift_vox` voxels (int (3,)): the
+    map rebuilds around shifted keys (hash_map.rebase) and the pose
+    translation shifts by the same voxel multiple, computed in f32. `delta`
+    and the adaptive threshold are translation-invariant and untouched. The
+    caller adds `shift_vox * voxel_size` to its world origin, so reported
+    poses do not move (KissICP.maybe_rebase).
+
+    Out of place: the returned state holds a new pose tensor and a new map,
+    so a FrameResult or ChunkSummary that shares the old pose is unchanged.
+
+    Returns (state, () int32 voxels dropped by the rebuild)."""
+    mcfg = map_config(config)
+    dev = state.pose.device
+    shift = torch.as_tensor(shift_vox).to(device=dev, dtype=torch.int32)
+    new_map, dropped = hash_map.rebase(mcfg, state.map, shift)
+    pose = state.pose.clone()
+    pose[:3, 3] -= shift.to(torch.float32) * voxel.f32_scalar(mcfg.voxel_size, dev)
+    return state._replace(pose=pose, map=new_map), dropped
+
+
+class ChunkSummary(NamedTuple):
+    """Per-frame scalars of a K-frame chunk, stacked on the device."""
+
+    poses: torch.Tensor  # (K, 4, 4)
+    sigmas: torch.Tensor  # (K,)
+    num_iterations: torch.Tensor  # (K,) int32
+    num_correspondences: torch.Tensor  # (K,)
+    num_dropped_downsample: torch.Tensor  # (K,)
+    num_dropped_map_voxels: torch.Tensor  # (K,)
+    num_oob_points: torch.Tensor  # (K,)
+    used_fallback: torch.Tensor  # (K,) bool
+
+
+def make_chunked_step(config: KISSConfig):
+    """A K-frame advance: `step(state, points (K,N,3), timestamps (K,N),
+    valid (K,N)) -> (state, ChunkSummary)`, inputs on the state's device.
+
+    The JAX package scans the frames inside one XLA program; PyTorch has no
+    `lax.scan`, so this is a Python loop over `register_frame` whose state
+    never leaves the device. Only the per-frame GN loop's one scalar a
+    iteration reaches the host; the summary's scalars are stacked on the
+    device."""
+
+    def chunk(state, points, timestamps, valid):
+        results = []
+        for i in range(points.shape[0]):
+            state, res = register_frame(config, state, points[i], timestamps[i], valid[i])
+            results.append(res)
+
+        def stacked(name):
+            return torch.stack([getattr(r, name) for r in results])
+
+        return state, ChunkSummary(
+            poses=stacked("pose"),
+            sigmas=stacked("sigma"),
+            num_iterations=torch.tensor([r.num_iterations for r in results],
+                                        dtype=torch.int32, device=points.device),
+            num_correspondences=stacked("num_correspondences"),
+            num_dropped_downsample=stacked("num_dropped_downsample"),
+            num_dropped_map_voxels=stacked("num_dropped_map_voxels"),
+            num_oob_points=stacked("num_oob_points"),
+            used_fallback=stacked("used_fallback"),
+        )
+
+    return chunk
+
+
+# Bytes a point takes in a packed chunk: 3 f32 coordinates, 1 f32 stamp and
+# the valid flag.
+_POINT_BYTES = 17
+
+
+def chunk_views(packed: torch.Tensor, k: int, cap: int):
+    """(points (K,cap,3) f32, timestamps (K,cap) f32, valid (K,cap) bool):
+    views of one packed chunk buffer of K * cap * 17 bytes, on its device."""
+    n = k * cap
+    return (packed[:12 * n].view(torch.float32).view(k, cap, 3),
+            packed[12 * n:16 * n].view(torch.float32).view(k, cap),
+            packed[16 * n:].view(torch.bool).view(k, cap))
+
+
+class PackedChunk(NamedTuple):
+    """K padded scans in one host buffer (pinned when the engine runs on
+    CUDA) and its numpy views; `dispatch_chunk` moves it in one copy."""
+
+    packed: torch.Tensor  # (K * cap * 17,) uint8
+    points: np.ndarray  # (K, cap, 3) float32
+    timestamps: np.ndarray  # (K, cap) float32
+    valid: np.ndarray  # (K, cap) bool
+
+    @property
+    def num_frames(self) -> int:
+        return self.points.shape[0]
+
+
 def subsample_to_capacity(frame, timestamps, cap: int):
     """Deterministic stride subsample of a scan above the padded-buffer
     capacity (head truncation would angularly bias an azimuth-ordered scan).
@@ -208,6 +314,14 @@ def subsample_to_capacity(frame, timestamps, cap: int):
     return frame[sel], timestamps, n - cap
 
 
+def create_odometry(config: KISSConfig, device=None) -> "KissICP":
+    """Engine factory used by the pipeline and the CLI. The map-sharded
+    engine of the JAX package (`engine.map_shards > 1`) is not ported yet:
+    `check_supported` refuses it (ROADMAP item 16)."""
+    check_supported(config)
+    return KissICP(config, device=device)
+
+
 class KissICP:
     """Stateful wrapper: numpy scans in, numpy poses out (reference
     kiss_icp.py:33-80, KissICP.hpp:56-96)."""
@@ -217,36 +331,66 @@ class KissICP:
         self.config = config
         self.device = resolve_device(device)
         self._capacity = int(config.engine.max_points_per_frame)
-        # Points discarded by _pad's stride subsample (input scan larger
-        # than engine.max_points_per_frame).
+        # Points discarded by the stride subsample (input scan larger than
+        # engine.max_points_per_frame).
         self.last_input_dropped = 0
         self.total_input_dropped = 0
+        # World origin of the engine's local frame (rolling-origin re-base):
+        # the state stays near the origin so voxel keys stay inside their
+        # +-16383-voxel envelope on drives of any length; reported poses are
+        # origin + local. float64, so kilometres of offset never round.
+        self.origin = np.zeros(3, np.float64)
+        self.total_rebase_dropped = 0
         self.state = init_state(config, self.device)
         self.last_result: Optional[FrameResult] = None
+        self.last_chunk_summary: Optional[ChunkSummary] = None
+        self.last_chunk_input_dropped = 0
+        self._chunk_step = None
 
-    def _pad(
-        self, frame: np.ndarray, timestamps: Optional[np.ndarray]
-    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        cap = self._capacity
+    def _pad_into(self, frame: np.ndarray, timestamps, pts: np.ndarray,
+                  ts: np.ndarray, valid: np.ndarray) -> None:
+        """Write one scan into padded (cap, ...) buffers, stride-subsampled
+        when it is above capacity (the drop is counted)."""
         frame, timestamps, dropped = subsample_to_capacity(
-            frame, timestamps, cap)
+            frame, timestamps, self._capacity)
         self.last_input_dropped = dropped
         self.total_input_dropped += dropped
         n = frame.shape[0]
-        pts = np.zeros((cap, 3), np.float32)
         pts[:n] = frame[:, :3]
-        ts = np.zeros((cap,), np.float32)
+        pts[n:] = 0.0
+        ts[:] = 0.0
         if timestamps is not None and len(timestamps) == n:
             ts[:n] = timestamps
-        valid = np.zeros((cap,), bool)
         valid[:n] = True
-        return pts, ts, valid
+        valid[n:] = False
+
+    def build_chunk(self, frames, timestamps_list=None) -> Tuple[PackedChunk, int]:
+        """Pack K numpy scans into one padded chunk buffer, 17 B a point
+        (pinned host memory when the engine runs on CUDA, so that
+        `dispatch_chunk` moves it in one asynchronous copy).
+
+        Returns `(chunk, input_dropped)`: the stride-subsample loss of scans
+        above max_points_per_frame in THIS chunk."""
+        k, cap = len(frames), self._capacity
+        packed = torch.empty(k * cap * _POINT_BYTES, dtype=torch.uint8,
+                             pin_memory=self.device.type == "cuda")
+        pts, ts, valid = (v.numpy() for v in chunk_views(packed, k, cap))
+        drops_before = self.total_input_dropped
+        for i, f in enumerate(frames):
+            t = None if timestamps_list is None else timestamps_list[i]
+            self._pad_into(np.asarray(f), t, pts[i], ts[i], valid[i])
+        return PackedChunk(packed, pts, ts, valid), self.total_input_dropped - drops_before
+
+    def _to_device(self, chunk: PackedChunk):
+        packed = chunk.packed.to(self.device, non_blocking=True)
+        return chunk_views(packed, chunk.num_frames, self._capacity)
 
     def register_frame(
         self, frame: np.ndarray, timestamps: Optional[np.ndarray] = None
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Returns (deskewed frame, ICP source) as compact numpy arrays,
-        mirroring the reference API (kiss_icp.py:43-75)."""
+        mirroring the reference API (kiss_icp.py:43-75), then checks the
+        rolling-origin trigger."""
         self.register_frame_lazy(frame, timestamps)
         out = self.last_frame(), self.last_source()
         self.maybe_rebase()
@@ -254,15 +398,53 @@ class KissICP:
 
     def register_frame_lazy(self, frame, timestamps=None) -> FrameResult:
         """Advance one frame without copying the point outputs to the host
-        (`last_frame()` / `last_source()` do that when needed)."""
-        pts, ts, valid = self._pad(np.asarray(frame), timestamps)
-        dev = self.device
-        self.state, res = register_frame(
-            self.config, self.state,
-            torch.from_numpy(pts).to(dev), torch.from_numpy(ts).to(dev),
-            torch.from_numpy(valid).to(dev))
+        (`last_frame()` / `last_source()` do that when needed). Does not
+        re-base: drivers call `maybe_rebase` where they read the pose."""
+        chunk, _ = self.build_chunk([frame], [timestamps])
+        pts, ts, valid = self._to_device(chunk)
+        self.state, res = register_frame(self.config, self.state, pts[0], ts[0], valid[0])
         self.last_result = res
         return res
+
+    def dispatch_chunk(self, chunk: PackedChunk, input_dropped: int = 0) -> ChunkSummary:
+        """Run one K-frame chunk (`build_chunk`) and return its summary on
+        the device. It returns once the host has issued all K frames: the
+        GN loop reads one scalar per iteration, so unlike the JAX package's
+        asynchronous dispatch there is no window in which the host could
+        pack the next chunk while the device works. `summary_poses` reads
+        the poses."""
+        self.last_chunk_input_dropped = input_dropped
+        if self._chunk_step is None:
+            self._chunk_step = self._make_chunk_step()
+        self.state, summary = self._chunk_step(self.state, *self._to_device(chunk))
+        self.last_chunk_summary = summary
+        return summary
+
+    def summary_poses(self, summary: ChunkSummary) -> np.ndarray:
+        """A chunk's (K, 4, 4) world poses on the host, f64: local poses plus
+        the rolling origin, which moves only in `maybe_rebase`, so every pose
+        of a chunk shares the origin it ran under."""
+        poses = self._summary_poses(summary).double().cpu().numpy()
+        poses[:, :3, 3] += self.origin
+        return poses
+
+    def register_frames_chunked(self, frames, timestamps_list=None) -> np.ndarray:
+        """Advance K frames and return their (K, 4, 4) world poses; the
+        state stays on the device throughout the chunk."""
+        chunk, dropped = self.build_chunk(frames, timestamps_list)
+        summary = self.dispatch_chunk(chunk, dropped)
+        poses = self.summary_poses(summary)
+        # Poses are on the host and nothing is in flight: the point at
+        # which the chunked path checks the envelope.
+        self.maybe_rebase(poses[-1, :3, 3])
+        return poses
+
+    def _make_chunk_step(self):
+        return make_chunked_step(self.config)
+
+    def _summary_poses(self, summary: ChunkSummary) -> torch.Tensor:
+        """The stacked (K, 4, 4) local poses of a chunk summary."""
+        return summary.poses
 
     def last_frame(self) -> np.ndarray:
         res = self.last_result
@@ -274,7 +456,8 @@ class KissICP:
 
     def last_overflow(self) -> Tuple[int, int, int, int]:
         """(downsample voxel drops, map voxel drops, input point drops,
-        out-of-envelope point drops) of the last frame."""
+        out-of-envelope point drops) of the last frame. The fourth stays 0
+        while `engine.rebase_trigger_voxels` > 0 (the default) re-bases."""
         res = self.last_result
         return (
             int(res.num_dropped_downsample),
@@ -284,10 +467,14 @@ class KissICP:
         )
 
     def maybe_rebase(self, world_translation=None) -> bool:
-        """The rolling-origin re-base trigger: a no-op until the pose
-        translation exceeds `engine.rebase_trigger_voxels` voxels (inf-norm).
-        The re-base itself is not ported yet, so a firing trigger raises
-        instead of going on with a map near its key envelope."""
+        """Roll the world origin once the local pose translation exceeds
+        `engine.rebase_trigger_voxels` voxels (inf-norm; 0 disables): the map
+        rebuilds around shifted keys, the pose shifts, and `self.origin`
+        absorbs the offset, so reported world poses are continuous.
+
+        Pass a world translation already on the host (the last pose of a
+        chunk) to avoid a read; with none, the local pose is read from the
+        device. Returns True when a re-base was applied."""
         trig = int(self.config.engine.rebase_trigger_voxels)
         if trig <= 0:
             return False
@@ -295,22 +482,60 @@ class KissICP:
         if world_translation is None:
             local_t = self.state.pose[:3, 3].double().cpu().numpy()
         else:
-            local_t = np.asarray(world_translation, np.float64)
+            local_t = np.asarray(world_translation, np.float64) - self.origin
         if float(np.max(np.abs(local_t))) < trig * v:
             return False
-        raise NotImplementedError(
-            "the pose left the rolling-origin re-base trigger "
-            f"({trig} voxels); hash_map.rebase is not ported yet "
-            "(ROADMAP item 8)")
+        # Voxel-aligned: u16 rows stay bit-identical, f32 rows and the pose
+        # shift by an exact voxel multiple.
+        shift_vox = np.floor(local_t / v).astype(np.int32)
+        dropped = self._apply_rebase(shift_vox)
+        self.origin = self.origin + shift_vox.astype(np.float64) * v
+        self.total_rebase_dropped += dropped
+        if dropped:
+            warnings.warn(
+                f"rolling-origin re-base dropped {dropped} voxels during "
+                "the table rebuild — the map is over-full for its "
+                "capacity_log2/probe_length; raise them.",
+                RuntimeWarning, stacklevel=2,
+            )
+        return True
+
+    def _apply_rebase(self, shift_vox: np.ndarray) -> int:
+        """Re-base this engine's state; returns the voxels the rebuild
+        dropped."""
+        self.state, dropped = rebase_state(self.config, self.state, shift_vox)
+        return int(dropped)
+
+    def save_checkpoint(self, path) -> None:
+        """Persist the full odometry state and the rolling origin
+        (io/checkpoint.py; the JAX package's format)."""
+        from kiss_icp_tpu_torch.io import checkpoint
+
+        checkpoint.save_checkpoint(path, self.state, self.config,
+                                   extras={"origin": self.origin})
+
+    def load_checkpoint(self, path) -> None:
+        """Restore a state saved by either package, validated against this
+        engine's config, onto this engine's device; a checkpoint without an
+        origin (written before re-bases existed) means origin zero."""
+        from kiss_icp_tpu_torch.io import checkpoint
+
+        self.state = checkpoint.load_checkpoint(path, self.config, self.device)
+        self.origin = np.asarray(
+            checkpoint.load_extra(path, "origin", np.zeros(3)), np.float64)
 
     @property
     def last_pose(self) -> np.ndarray:
-        return self.state.pose.double().cpu().numpy()
+        """World pose of the last frame: local pose + rolling origin."""
+        pose = self.state.pose.double().cpu().numpy()
+        pose[:3, 3] += self.origin
+        return pose
 
     @property
     def last_delta(self) -> np.ndarray:
         return self.state.delta.cpu().numpy()
 
     def local_map_points(self) -> np.ndarray:
+        """The local map's points in the world frame (f64)."""
         pts, mask = hash_map.extract_points(map_config(self.config), self.state.map)
-        return pts[mask].double().cpu().numpy()
+        return pts[mask].double().cpu().numpy() + self.origin

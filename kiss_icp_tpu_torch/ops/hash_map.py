@@ -19,7 +19,8 @@ deterministic claim rounds, so a map built by either package has identical
 Memory: the map is 2^19 slots by default (126 MB of f32 points), so `insert`
 and `trim` update the VoxelMap's tensors IN PLACE and return a VoxelMap that
 shares them; the map passed in must not be used afterwards (the JAX package
-donates the buffers for the same reason).
+donates the buffers for the same reason). `rebase`, which runs every few
+kilometres, rebuilds into new tensors.
 
 uint32 hashing is computed in int64 with the low 32 bits masked after every
 multiply (the int64 product may wrap; its low 32 bits stay right), and right
@@ -427,6 +428,64 @@ def trim(cfg: MapConfig, m: VoxelMap, origin: torch.Tensor) -> VoxelMap:
     m.fprints.masked_fill_(kill, 0)
     m.counts.masked_fill_(kill, 0)
     return m._replace(total_points=m.total_points - removed)
+
+
+def rebase(cfg: MapConfig, m: VoxelMap,
+           shift_vox: torch.Tensor) -> Tuple[VoxelMap, torch.Tensor]:
+    """Shift the map's world origin by `shift_vox` voxels (int (3,)): every
+    live voxel key moves to `key - shift_vox`, and the table is rebuilt
+    around the new keys through the same claim rounds as `insert`
+    (JAX `hash_map.rebase`). This keeps a long drive inside the ±16383-voxel
+    key envelope (voxel_ops.in_envelope); the caller shifts the pose by the
+    same voxel multiple (odometry.rebase_state).
+
+    f32 rows shift by `shift_vox * voxel_size` in f32, an exact voxel
+    multiple; u16 rows are voxel-relative and move unchanged. Unlike
+    `insert`, the rebuild writes into NEW tensors: `m` is left as it was.
+    Voxels the rebuild cannot place are counted into `num_dropped_voxels`.
+
+    Returns (rebased map, () int32 voxels dropped by the rebuild).
+    """
+    k = cfg.probe_length
+    dev = m.counts.device
+    shift = torch.as_tensor(shift_vox).to(device=dev, dtype=torch.int32)
+    live = m.counts > 0
+    new_coords = m.vkeys - shift[None, :]
+    fprints = torch.zeros_like(m.fprints)
+    vkeys = torch.zeros_like(m.vkeys)
+    assigned = _claim_slots(fprints, vkeys, new_coords,
+                            fingerprint(new_coords),
+                            window_row(new_coords, cfg.capacity_log2, k), live,
+                            probe_length=k, capacity=cfg.capacity)
+    dropped = live & (assigned < 0)
+    n_dropped_voxels = torch.sum(dropped, dtype=torch.int32)
+    n_dropped_points = torch.sum(torch.where(dropped, m.counts, torch.zeros_like(m.counts)),
+                                 dtype=torch.int32)
+
+    # Move each placed row to its claimed slot. The claimed slots are
+    # unique, so the scatter is deterministic.
+    src = torch.nonzero(assigned >= 0).squeeze(1)
+    dst = assigned[src]
+    rows = _take_rows(m.points, src)
+    if cfg.storage == "f32":
+        rows = rows - (shift.to(torch.float32)
+                       * voxel_ops.f32_scalar(cfg.voxel_size, dev))[None, None, :]
+    bits = _BITS[m.points.dtype]
+    points = torch.zeros_like(m.points.view(bits))
+    points.index_copy_(0, dst, rows.view(bits))
+    counts = torch.zeros_like(m.counts)
+    counts.index_copy_(0, dst, m.counts[src])
+
+    new_map = VoxelMap(
+        vkeys=vkeys,
+        fprints=fprints,
+        counts=counts,
+        points=points.view(m.points.dtype),
+        total_points=m.total_points - n_dropped_points,
+        num_dropped_voxels=m.num_dropped_voxels + n_dropped_voxels,
+        num_oob_points=m.num_oob_points.clone(),
+    )
+    return new_map, n_dropped_voxels
 
 
 def extract_points(cfg: MapConfig, m: VoxelMap) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -226,3 +226,93 @@ def test_small_drive_card_matches_cpu(cuda):
     for (pg, ig), (pc, ic) in zip(runs["cuda"], runs["cpu"]):
         np.testing.assert_allclose(pg, pc, atol=1e-4)
         assert ig == ic
+
+
+def _bits(t):
+    """A tensor's bits on the CPU, so that float and u16 fields compare
+    exactly (u16 crosses as int16: PyTorch has few CUDA kernels for it)."""
+    if t.dtype == torch.uint16:
+        t = t.view(torch.int16)
+    t = t.cpu()
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _map_cpu(m):
+    return hm.VoxelMap(*(t.view(torch.int16).cpu().view(torch.uint16)
+                         if t.dtype == torch.uint16 else t.cpu() for t in m))
+
+
+@pytest.mark.parametrize("storage", ["f32", "u16"])
+@pytest.mark.parametrize("capacity_log2,shift", [(14, [7, -5, 3]), (8, [3, 3, 3])])
+def test_rebase_card_bit_equal_to_cpu(cuda, storage, capacity_log2, shift):
+    """hash_map.rebase on the card gives the CPU's table bit for bit, the
+    drop count included (2^8 slots: an over-full map whose rebuild drops)."""
+    cfg, m = _map(storage, cuda, capacity_log2=capacity_log2)
+    s = torch.tensor(shift, dtype=torch.int32)
+    got, dropped = hm.rebase(cfg, m, s.to(cuda))
+    ref, ref_dropped = hm.rebase(cfg, _map_cpu(m), s)
+    assert int(dropped) == int(ref_dropped)
+    assert (int(dropped) > 0) == (capacity_log2 == 8)
+    for name, a, b in zip(hm.VoxelMap._fields, got, ref):
+        assert torch.equal(_bits(a), _bits(b)), name
+
+
+def _drive_config(storage="f32", trigger=3):
+    cfg = KISSConfig()
+    cfg.data.min_range = 1.0
+    cfg.mapping.voxel_size = 1.0
+    cfg.engine.max_points_per_frame = 8192
+    cfg.engine.frame_capacity = 8192
+    cfg.engine.source_capacity = 2048
+    cfg.engine.map_capacity_log2 = 15
+    cfg.engine.map_storage = storage
+    cfg.engine.rebase_trigger_voxels = trigger
+    return cfg
+
+
+def _drive_scans(n):
+    from kiss_icp_tpu_torch.datasets.synthetic import SyntheticDataset
+
+    ds = SyntheticDataset(sequence=1, n_scans=n, n_beams=16, n_azimuth=512,
+                          speed=1.0, accel_frames=3)
+    return [ds[i] for i in range(n)]
+
+
+def test_chunked_on_card_equals_streaming_on_card(cuda):
+    from kiss_icp_tpu_torch.odometry import KissICP
+
+    scans = _drive_scans(6)
+    stream = KissICP(_drive_config(trigger=0), device="cuda")
+    ref = []
+    for f, t in scans:
+        stream.register_frame(f, t)
+        ref.append(stream.last_pose)
+    chunked = KissICP(_drive_config(trigger=0), device="cuda")
+    got = []
+    for a in (0, 3):
+        got.extend(chunked.register_frames_chunked([s[0] for s in scans[a:a + 3]],
+                                                   [s[1] for s in scans[a:a + 3]]))
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
+
+
+@pytest.mark.parametrize("storage", ["f32", "u16"])
+def test_checkpoint_on_card_resumes_bit_identical(cuda, storage, tmp_path):
+    from kiss_icp_tpu_torch import convert
+    from kiss_icp_tpu_torch.odometry import KissICP
+
+    # The trigger of 2 voxels fires at the seventh frame (3 m from the start).
+    scans = _drive_scans(8)
+    icp = KissICP(_drive_config(storage, trigger=2), device="cuda")
+    for f, t in scans[:7]:
+        icp.register_frame(f, t)
+    assert np.any(icp.origin != 0)
+    path = tmp_path / "ckpt.npz"
+    icp.save_checkpoint(path)
+    resumed = KissICP(_drive_config(storage, trigger=2), device="cuda")
+    resumed.load_checkpoint(path)
+    for a, b in zip(convert.state_to_numpy(resumed.state), convert.state_to_numpy(icp.state)):
+        np.testing.assert_array_equal(a, b)
+    icp.register_frame(*scans[7])
+    resumed.register_frame(*scans[7])
+    np.testing.assert_array_equal(resumed.last_pose, icp.last_pose)
+    np.testing.assert_array_equal(resumed.origin, icp.origin)

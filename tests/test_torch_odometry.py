@@ -141,11 +141,32 @@ def test_unported_options_refused_at_construction():
 
 
 def test_rebase_trigger_raises_instead_of_drifting_on():
-    cfg = _small(KISSConfig)
-    cfg.engine.rebase_trigger_voxels = 2
-    icp = odometry.KissICP(cfg, device="cpu")
+    """The trigger no longer raises: past `rebase_trigger_voxels` the origin
+    rolls as in JAX (the pose shifts by whole voxels, the world pose stays),
+    and a rebuild that drops voxels raises a RuntimeWarning."""
+    cfg, jcfg = _small(KISSConfig), _small(JaxConfig)
+    cfg.engine.rebase_trigger_voxels = jcfg.engine.rebase_trigger_voxels = 2
+    icp, jicp = odometry.KissICP(cfg, device="cpu"), jodo.KissICP(jcfg)
+    frame = _random_frames(1)[0]
+    icp.register_frame(frame)
+    jicp.register_frame(frame)
     assert icp.maybe_rebase([0.5, 0.0, 0.0]) is False
-    with pytest.raises(NotImplementedError, match="item 8"):
-        icp.maybe_rebase([3.0, 0.0, 0.0])
+    world = icp.last_pose
+    assert icp.maybe_rebase([3.0, 0.0, -1.2]) is True
+    assert jicp.maybe_rebase([3.0, 0.0, -1.2]) is True
+    np.testing.assert_array_equal(icp.origin, [3.0, 0.0, -1.5])
+    np.testing.assert_array_equal(icp.origin, jicp.origin)
+    np.testing.assert_allclose(icp.last_pose, world, atol=1e-6)
+    np.testing.assert_allclose(icp.local_map_points().sum(0), jicp.local_map_points().sum(0),
+                               rtol=1e-6)
     cfg.engine.rebase_trigger_voxels = 0
     assert odometry.KissICP(cfg, device="cpu").maybe_rebase([1e6, 0, 0]) is False
+
+    full = _small(KISSConfig)
+    full.engine.map_capacity_log2 = 6  # 64 slots: the rebuild cannot place all
+    full.engine.rebase_trigger_voxels = 1
+    icp = odometry.KissICP(full, device="cpu")
+    icp.register_frame_lazy(frame)
+    with pytest.warns(RuntimeWarning, match="re-base dropped"):
+        assert icp.maybe_rebase([5.0, 5.0, 5.0]) is True
+    assert icp.total_rebase_dropped > 0
