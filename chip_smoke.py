@@ -16,20 +16,31 @@ non-zero without printing the final result line):
   5. drive     12 frames of the synthetic 64x1024 LiDAR through
                KissICP.register_frame (the verify drive's config and gates),
                plus a small 3-frame drive on the card vs the CPU
-  6. probes    empty / all-NaN / out-of-range scans, then a normal scan
-  7. times     each kernel and its plain version at the main path's shapes,
+  6. modes     the drive again in nn_mode loop27, compact, compact_loop (each
+               bit-identical to the drive, with its K1 and K2 launches),
+               compact with a too-small view (drops reported, bit-identical)
+               and cached (within tests/test_cached_assoc.py's bounds of
+               the drive); each also on the small drive, card vs CPU
+     options   the drive with deskew_refine = 1, deskew_refine_map and
+               ground_align = 0.1 (the verify gates), each on the small
+               drive card vs CPU; then the CLI with every option on over 6
+               full-width scans, against the same drive in this process
+  7. probes    empty / all-NaN / out-of-range scans, then a normal scan
+  8. times     each kernel and its plain version at the main path's shapes,
                beside a launch floor (a one-element add_ timed the same way)
-  8. rebase    hash_map.rebase of the drive's 2^19-slot map (f32, and a u16
+  9. rebase    hash_map.rebase of the drive's 2^19-slot map (f32, and a u16
                twin) and of an over-full small map, on the card and on the
                CPU: tables bit-equal, drop counts equal
-  9. cli       `python -m kiss_icp_tpu_torch.tools.cmd` over 100 full-width
-               synthetic scans, twice, in subprocesses: run A (default
-               rebase trigger) against the JAX golden
+ 10. cli       `python -m kiss_icp_tpu_torch.tools.cmd` over 100 full-width
+               synthetic scans, twice, in two subprocesses at once: run A
+               (default rebase trigger) against the JAX golden
                (kiss_icp_tpu_torch/tools/golden_cli_drive.json), run B with
                the origin rolled every 16 voxels against run A
- 10. resume    drive, save_checkpoint, load into a fresh KissICP, one more
+ 11. resume    drive, save_checkpoint, load into a fresh KissICP, one more
                frame on both: bit-identical (f32 and u16 maps)
-Then one JSON line of per-kernel numbers, and the result line
+Each mode and option is driven with the kernels' launch counters set to 0
+just before it and read just after. Then one JSON line of per-kernel
+numbers, and the result line
 {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero when no CUDA
@@ -71,6 +82,17 @@ N_FRAMES = 12
 REBASE_ATOL_T, REBASE_ATOL_R = 5e-3, 1e-3
 # The cli phase's run A: frames 1-12 within 1e-3 m of the JAX golden.
 CLI_FRAME_TOL = 1e-3
+# tests/test_cached_assoc.py:76-101: nn_mode "cached" against the exact mode.
+CACHED_MAX_T, CACHED_ROT_ATOL = 0.15, 6e-3
+CACHED_ATE_FACTOR, CACHED_ATE_MARGIN, CACHED_ITER_FACTOR = 1.15, 0.01, 2.5
+# The modes and options phases: engine settings on top of the drive's config.
+MODES = {"loop27": dict(nn_mode="loop27"), "compact": dict(nn_mode="compact"),
+         "compact_loop": dict(nn_mode="compact_loop"),
+         "compact-overflow": dict(nn_mode="compact", nn_live_capacity_log2=10),
+         "cached": dict(nn_mode="cached")}
+OPTIONS = {"deskew_refine=1": dict(deskew_refine=1),
+           "deskew_refine_map": dict(deskew_refine_map=True),
+           "ground_align=0.1": dict(ground_align=0.1)}
 
 # The cli phase's subprocess: `tools.cmd.main(argv)`, which `python -m
 # kiss_icp_tpu_torch.tools.cmd` runs, wrapped only to read what the run
@@ -378,62 +400,31 @@ def main() -> int:
     # 5. main path: KissICP.register_frame on the card, the verify gates
     icp = KissICP(cfg)
     check(icp.device.type == "cuda", "KissICP did not default to the GPU")
-    linsys.build_linear_system.launches = 0
-    nn27.query_nearest.launches = 0
-    frame_ms, iters, drops, poses = [], [], 0, []
-    for pts, stamps in scans:
-        t0 = time.perf_counter()
-        icp.register_frame(pts, stamps)
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
-        res = icp.last_result
-        iters.append(int(res.num_iterations))
-        drops += int(res.num_dropped_downsample) + int(res.num_dropped_map_voxels)
-        poses.append(icp.last_pose)
-    launches = {"k1": linsys.build_linear_system.launches,
-                "k2": nn27.query_nearest.launches}
-    poses = np.stack(poses)
+    drive = drive_engine(icp, scans)
+    launches, iters, poses, drops = drive["launches"], drive["iters"], drive["poses"], drive["drops"]
     err = np.linalg.norm(poses[:, :3, 3] - ds.gt_poses[:N_FRAMES, :3, 3], axis=1)
-    check(np.all(np.isfinite(poses)), "drive: non-finite pose")
-    check(err.max() < 0.7, f"drive: max translation error {err.max():.4f} m >= 0.7")
-    check(max(iters) < 200, f"drive: {max(iters)} iterations >= 200")
-    check(drops == 0, f"drive: {drops} voxels dropped")
+    check_verify_gates("drive", drive, err)
     check(launches["k1"] > 0 and launches["k2"] > 0,
           f"drive: a kernel was not launched on the main path ({launches})")
-    steady = frame_ms[1:]
-    p50 = float(np.median(steady))
+    p50 = drive["p50"]
     print(f"drive: {N_FRAMES} frames x ~{int(np.mean([len(s[0]) for s in scans]))} "
           f"points (scans made in {scan_s:.1f} s): max_err={err.max():.4f} m "
           f"final_err={err[-1]:.4f} m iters={iters} drops={drops} launches={launches}; "
           f"p50 {p50:.2f} ms/frame ({1e3 / p50:.1f} frames/s) after frame 1, "
-          f"frame 1 {frame_ms[0]:.1f} ms; on {smi}", flush=True)
+          f"frame 1 {drive['frame_ms'][0]:.1f} ms; on {smi}", flush=True)
     print("drive-poses: translations per frame (m) "
           + json.dumps([[float(f"{x:.7g}") for x in p[:3, 3]] for p in poses]), flush=True)
 
     # Small input: the same 3 frames on the card (kernels) and on the CPU
     # (plain versions) must agree (atol 1e-4, tests/test_pallas_kernels.py).
-    small = verify_drive_config()
-    small.engine.max_points_per_frame = 8192
-    small.engine.frame_capacity = 8192
-    small.engine.source_capacity = 2048
-    small.engine.map_capacity_log2 = 15
-    sds = SyntheticDataset(sequence=1, n_scans=3, n_beams=16, n_azimuth=512,
-                           speed=1.0, accel_frames=6)
-    runs = {}
-    for d in ("cuda", "cpu"):
-        eng = KissICP(small, device=d)
-        runs[d] = [(eng.register_frame(*sds[i]), eng.last_pose,
-                    eng.last_result.num_iterations)[1:] for i in range(3)]
-    gpu_p = np.stack([r[0] for r in runs["cuda"]])
-    cpu_p = np.stack([r[0] for r in runs["cpu"]])
-    small_err = float(np.abs(gpu_p - cpu_p).max())
-    check(small_err < 1e-4, f"small drive: card vs CPU poses differ by {small_err}")
-    check([r[1] for r in runs["cuda"]] == [r[1] for r in runs["cpu"]],
-          "small drive: iteration counts differ between card and CPU")
+    small_err, small_iters = small_drive({})
     print(f"drive-small: 3 frames (16x512 beams) card vs CPU plain path: "
-          f"max |pose diff| {small_err:.3e}, iterations {[r[1] for r in runs['cuda']]}",
-          flush=True)
+          f"max |pose diff| {small_err:.3e}, iterations {small_iters}", flush=True)
 
-    # 6. degradation probes
+    mode_launches = phase_modes(cfg, scans, ds, drive, smi)
+    mode_launches.update(phase_options(cfg, scans, ds, smi))
+
+    # 7. degradation probes
     probe = KissICP(cfg)
     cap = cfg.engine.max_points_per_frame
     probe.register_frame(*scans[0])
@@ -448,7 +439,7 @@ def main() -> int:
           "probes: a pose went non-finite")
     print("probes: empty / all-NaN / all-far / recover: all poses finite", flush=True)
 
-    # 7. kernel times at the main path's shapes, on the drive's own data:
+    # 8. kernel times at the main path's shapes, on the drive's own data:
     # the final map, queried by the last frame's ICP source at its final
     # pose (what the drive's last GN iteration ran), and the normal
     # equations of those correspondences.
@@ -541,11 +532,190 @@ def main() -> int:
         phase_resume(Path(tmp))
     for k, key in zip(kernels, ("k1", "k2")):
         k["launches_cli"] = {run: cli_launches[run][key] for run in ("A", "B")}
+        k["launches_modes"] = {name: counts[key] for name, counts in mode_launches.items()}
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def drive_engine(icp, scans) -> dict:
+    """Drive `icp` over `scans` one frame a call (KissICP.register_frame),
+    with the kernels' launch counters set to 0 just before and read just
+    after: poses, iterations, drops, host ms per frame and launches."""
+    from kiss_icp_tpu_torch.kernels import linsys, nn27
+
+    linsys.build_linear_system.launches = 0
+    nn27.query_nearest.launches = 0
+    frame_ms, iters, poses, drops, map_drops = [], [], [], 0, 0
+    for pts, stamps in scans:
+        t0 = time.perf_counter()
+        icp.register_frame(pts, stamps)
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        res = icp.last_result
+        iters.append(int(res.num_iterations))
+        map_drops += int(res.num_dropped_map_voxels)
+        drops += int(res.num_dropped_downsample) + int(res.num_dropped_map_voxels)
+        poses.append(icp.last_pose)
+    launches = {"k1": linsys.build_linear_system.launches, "k2": nn27.query_nearest.launches}
+    return {"poses": np.stack(poses), "iters": iters, "drops": drops, "map_drops": map_drops,
+            "frame_ms": frame_ms, "p50": float(np.median(frame_ms[1:])), "launches": launches}
+
+
+def check_verify_gates(label: str, run: dict, err) -> None:
+    """The verify drive's gates (.claude/skills/verify/drive.py): finite
+    poses, max translation error < 0.7 m, < 200 iterations, no drops."""
+    check(np.all(np.isfinite(run["poses"])), f"{label}: non-finite pose")
+    check(err.max() < 0.7, f"{label}: max translation error {err.max():.4f} m >= 0.7")
+    check(max(run["iters"]) < 200, f"{label}: {max(run['iters'])} iterations >= 200")
+    check(run["drops"] == 0, f"{label}: {run['drops']} voxels dropped")
+
+
+def engine_config(base, engine: dict):
+    """A copy of `base` with the given engine settings."""
+    import copy
+
+    cfg = copy.deepcopy(base)
+    for key, value in engine.items():
+        setattr(cfg.engine, key, value)
+    return cfg
+
+
+def small_drive(engine: dict):
+    """3 frames of the 16x512-beam procedural LiDAR on the card and on the
+    CPU with the drive's config and `engine` on top: poses within atol 1e-4
+    (tests/test_pallas_kernels.py), iterations and drops equal. Returns (max
+    |pose diff|, iterations)."""
+    from kiss_icp_tpu_torch.datasets.synthetic import SyntheticDataset
+    from kiss_icp_tpu_torch.odometry import KissICP
+    from kiss_icp_tpu_torch.tools.profile_drive import verify_drive_config
+
+    small = engine_config(verify_drive_config(), dict(
+        max_points_per_frame=8192, frame_capacity=8192, source_capacity=2048,
+        map_capacity_log2=15, **engine))
+    sds = SyntheticDataset(sequence=1, n_scans=3, n_beams=16, n_azimuth=512,
+                           speed=1.0, accel_frames=6)
+    runs = {}
+    for d in ("cuda", "cpu"):
+        eng = KissICP(small, device=d)
+        runs[d] = [(eng.register_frame(*sds[i]), eng.last_pose, eng.last_result.num_iterations,
+                    eng.last_overflow())[1:] for i in range(3)]
+    err = float(np.abs(np.stack([r[0] for r in runs["cuda"]])
+                       - np.stack([r[0] for r in runs["cpu"]])).max())
+    label = "small drive" + (f" {engine}" if engine else "")
+    check(err < 1e-4, f"{label}: card vs CPU poses differ by {err}")
+    check([r[1:] for r in runs["cuda"]] == [r[1:] for r in runs["cpu"]],
+          f"{label}: iteration or drop counts differ between card and CPU")
+    return err, [r[1] for r in runs["cuda"]]
+
+
+def _mode_line(label, run, extra, small, smi):
+    print(f"{label}: p50 {run['p50']:.2f} ms/frame, iters {run['iters']} "
+          f"(sum {sum(run['iters'])}), launches K1 {run['launches']['k1']} / K2 "
+          f"{run['launches']['k2']}, drops {run['drops']} (map {run['map_drops']}); {extra}; "
+          f"small drive card vs CPU {small[0]:.3e}, iterations {small[1]}; on {smi}",
+          flush=True)
+
+
+def phase_modes(cfg, scans, ds, drive: dict, smi: str) -> dict:
+    """6. The drive in the other association modes, on the card. loop27,
+    compact and compact_loop give the gather27 drive's poses, iterations and
+    launches bit for bit; a compact view too small for the map reports its
+    drops and gives the same bits; cached stays within
+    tests/test_cached_assoc.py's bounds of the drive. Returns each mode's
+    launches."""
+    from kiss_icp_tpu_torch.metrics import absolute_trajectory_error
+    from kiss_icp_tpu_torch.odometry import KissICP
+
+    gt = ds.gt_poses[:N_FRAMES]
+    out = {}
+    for name, engine in MODES.items():
+        run = drive_engine(KissICP(engine_config(cfg, engine)), scans)
+        k = out[name] = run["launches"]
+        err = np.linalg.norm(run["poses"][:, :3, 3] - gt[:, :3, 3], axis=1)
+        check(k["k1"] > 0, f"modes {name}: K1 was not launched ({k})")
+        if name == "cached":
+            check_verify_gates(f"modes {name}", run, err)
+            check(k["k2"] > 0, f"modes {name}: K2 was not launched ({k})")
+            dev_t = np.linalg.norm(run["poses"][:, :3, 3] - drive["poses"][:, :3, 3], axis=1).max()
+            dev_r = np.abs(run["poses"][:, :3, :3] - drive["poses"][:, :3, :3]).max()
+            ate, _ = absolute_trajectory_error(gt, run["poses"])
+            ate_exact, _ = absolute_trajectory_error(gt, drive["poses"])
+            mean_it, mean_exact = np.mean(run["iters"]), max(np.mean(drive["iters"]), 1.0)
+            check(dev_t < CACHED_MAX_T and dev_r <= CACHED_ROT_ATOL,
+                  f"modes cached: {dev_t:.4f} m / {dev_r:.2e} from the drive")
+            check(ate <= ate_exact * CACHED_ATE_FACTOR + CACHED_ATE_MARGIN,
+                  f"modes cached: ATE {ate:.4f} m against the drive's {ate_exact:.4f}")
+            check(mean_it < CACHED_ITER_FACTOR * mean_exact,
+                  f"modes cached: {mean_it:.1f} iterations a frame against {mean_exact:.1f}")
+            extra = (f"max_err {err.max():.4f} m; from the drive {dev_t:.4f} m (limit "
+                     f"{CACHED_MAX_T}) / rotation {dev_r:.2e} (limit {CACHED_ROT_ATOL}); ATE "
+                     f"{ate:.6f} m against {ate_exact:.6f} (limit {CACHED_ATE_FACTOR} x + "
+                     f"{CACHED_ATE_MARGIN}); mean iterations {mean_it:.2f} against "
+                     f"{mean_exact:.2f} (limit {CACHED_ITER_FACTOR} x)")
+        else:
+            check(np.array_equal(run["poses"], drive["poses"]) and run["iters"] == drive["iters"],
+                  f"modes {name}: poses or iterations differ from the gather27 drive "
+                  f"(max |diff| {np.abs(run['poses'] - drive['poses']).max():.3e})")
+            overflow = name == "compact-overflow"
+            check((run["drops"] > 0) == overflow and run["map_drops"] == run["drops"],
+                  f"modes {name}: drops {run['drops']} (map {run['map_drops']})")
+            # Every mode here runs the drive's query (K2) in each iteration;
+            # the compact modes also build the view, for its drop count.
+            check(k == drive["launches"], f"modes {name}: launches {k}, drive "
+                  f"{drive['launches']}")
+            extra = (f"poses and iterations bit-identical to the gather27 drive, max_err "
+                     f"{err.max():.4f} m")
+        _mode_line(f"modes {name}", run, extra, small_drive(engine), smi)
+    return out
+
+
+def phase_options(cfg, scans, ds, smi: str) -> dict:
+    """6. The drive with each frame option (the verify gates), each on the
+    small drive card vs CPU; then the CLI with every option on (nn_mode
+    cached) over 6 full-width scans in a subprocess, against the same scans
+    driven in this process. Returns each run's launches."""
+    from kiss_icp_tpu_torch.config.schema import config_to_dict
+    from kiss_icp_tpu_torch.datasets.synthetic import SyntheticDataset
+    from kiss_icp_tpu_torch.odometry import KissICP
+
+    gt = ds.gt_poses[:N_FRAMES]
+    out = {}
+    for name, engine in OPTIONS.items():
+        run = drive_engine(KissICP(engine_config(cfg, engine)), scans)
+        k = out[name] = run["launches"]
+        err = np.linalg.norm(run["poses"][:, :3, 3] - gt[:, :3, 3], axis=1)
+        check_verify_gates(f"options {name}", run, err)
+        check(k["k1"] > 0 and k["k2"] > 0, f"options {name}: a kernel was not launched ({k})")
+        _mode_line(f"options {name}", run, f"max_err {err.max():.4f} m final_err "
+                   f"{err[-1]:.4f} m", small_drive(engine), smi)
+
+    frames = 6
+    every = dict(nn_mode="cached", deskew_refine=1, deskew_refine_map=True, ground_align=0.1)
+    ref_cfg = engine_config(cfg, every)
+    cli_ds = SyntheticDataset(sequence=0)  # what `--dataloader synthetic` loads
+    ref = drive_engine(KissICP(ref_cfg), [cli_ds[i] for i in range(frames)])
+    with tempfile.TemporaryDirectory() as tmp:
+        config = config_to_dict(ref_cfg)
+        config["out_dir"] = str(Path(tmp) / "C")
+        run = _cli_runs(Path(tmp), [("C", config, frames, ())])["C"]
+        seq = run["sequence"]
+        poses = np.load(Path(run["results_dir"]) / f"{seq}_poses.npy")
+    k = out["cli C"] = run["launches"]
+    diff = float(np.abs(poses - ref["poses"]).max())
+    check(run["device"].startswith("cuda") and poses.shape == (frames, 4, 4),
+          f"cli C: {poses.shape} on {run['device']}")
+    check(diff <= 1e-4 and run["iterations"] == ref["iters"],
+          f"cli C: {diff:.3e} from the same drive in this process, iterations "
+          f"{run['iterations']} against {ref['iters']}")
+    check(not any(run["drops"].values()), f"cli C: drops {run['drops']}")
+    check(k["k1"] > 0 and k["k2"] > 0, f"cli C: a kernel was not launched ({k})")
+    print(f"options cli C: `python -m kiss_icp_tpu_torch.tools.cmd` with {every}, "
+          f"{frames} frames x 64x1024 beams, chunk {run['chunk']}: within {diff:.3e} of the "
+          f"same drive in this process, iterations {run['iterations']}, launches {k}, "
+          f"engine {run['engine_ms_per_frame']:.3f} ms/frame; on {smi}", flush=True)
+    return out
 
 
 def _bits(t):
@@ -560,7 +730,7 @@ def _bits(t):
 
 
 def phase_rebase(icp, cfg, scans, ds) -> None:
-    """8. hash_map.rebase on the card against the CPU: the drive's own 2^19
+    """9. hash_map.rebase on the card against the CPU: the drive's own 2^19
     map (f32), a u16 twin of it (the same slots, points encoded), and an
     over-full 2^10 map whose rebuild must drop voxels."""
     import torch
@@ -608,23 +778,45 @@ def phase_rebase(icp, cfg, scans, ds) -> None:
           + " (host clock, one call each)", flush=True)
 
 
-def _cli_run(tmp: Path, label: str, config: dict, frames: int, extra=()):
-    """One CLI run in a subprocess on the card; its `cli-run` record."""
-    cfg_file = tmp / f"{label}.yml"
-    cfg_file.write_text(json.dumps(config))  # JSON is YAML
-    out = subprocess.run(
-        [sys.executable, "-c", CLI_DRIVER, str(tmp), "--dataloader", "synthetic",
-         "--sequence", "0", "--config", str(cfg_file), "--n-scans", str(frames), *extra],
-        cwd=REPO, capture_output=True, text=True, timeout=900)
-    check(out.returncode == 0,
-          f"cli {label}: rc {out.returncode}\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
-    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("cli-run ")]
-    check(len(lines) == 1, f"cli {label}: no cli-run record in its output")
-    return json.loads(lines[0][len("cli-run "):])
+def _cli_runs(tmp: Path, runs) -> dict:
+    """CLI runs in subprocesses on the card, all started together (the
+    synthetic renderer on the host sets their pace, and the host has cores
+    to spare): `runs` is a list of (label, config, frames, extra flags).
+    Returns each run's `cli-run` record; a run that fails fails the phase,
+    and no process outlives the call."""
+    procs = {}
+    try:
+        for label, config, frames, extra in runs:
+            cfg_file = tmp / f"{label}.yml"
+            cfg_file.write_text(json.dumps(config))  # JSON is YAML
+            logs = (open(tmp / f"{label}.out", "w"), open(tmp / f"{label}.err", "w"))
+            procs[label] = (subprocess.Popen(
+                [sys.executable, "-c", CLI_DRIVER, str(tmp), "--dataloader", "synthetic",
+                 "--sequence", "0", "--config", str(cfg_file), "--n-scans", str(frames),
+                 *extra], cwd=REPO, stdout=logs[0], stderr=logs[1]), logs)
+        records = {}
+        for label, (proc, logs) in procs.items():
+            rc = proc.wait(timeout=900)
+            for f in logs:
+                f.close()
+            out = (tmp / f"{label}.out").read_text()
+            check(rc == 0, f"cli {label}: rc {rc}\n{out[-2000:]}\n"
+                  f"{(tmp / f'{label}.err').read_text()[-4000:]}")
+            lines = [ln for ln in out.splitlines() if ln.startswith("cli-run ")]
+            check(len(lines) == 1, f"cli {label}: no cli-run record in its output")
+            records[label] = json.loads(lines[0][len("cli-run "):])
+        return records
+    finally:
+        for proc, logs in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            for f in logs:
+                f.close()
 
 
 def phase_cli(tmp: Path, smi: str) -> dict:
-    """9. The CLI over the JAX golden's drive, run A (default trigger) and
+    """10. The CLI over the JAX golden's drive, run A (default trigger) and
     run B (origin rolled every 16 voxels, checkpoint at the end). Returns
     each run's kernel launches."""
     from kiss_icp_tpu_torch.config.schema import config_to_dict
@@ -635,13 +827,15 @@ def phase_cli(tmp: Path, smi: str) -> dict:
     base = config_to_dict(verify_drive_config())
     check(golden["config"] == base, "cli: the golden was made with another config")
     n = golden["frames"]
-    runs, poses = {}, {}
+    specs = []
     for label, trigger, extra in (("A", base["engine"]["rebase_trigger_voxels"], ()),
                                   ("B", 16, ("--save-checkpoint",))):
         config = json.loads(json.dumps(base))
         config["out_dir"] = str(tmp / label)
         config["engine"]["rebase_trigger_voxels"] = trigger
-        run = runs[label] = _cli_run(tmp, label, config, n, extra)
+        specs.append((label, config, n, extra))
+    runs, poses = _cli_runs(tmp, specs), {}
+    for label, run in runs.items():
         out = Path(run["results_dir"])
         seq = run["sequence"]
         for f in (f"{seq}_poses.npy", f"{seq}_kitti.txt", f"{seq}_tum.txt", f"{seq}_gt.npy",
@@ -708,7 +902,7 @@ def phase_cli(tmp: Path, smi: str) -> dict:
 
 
 def phase_resume(tmp: Path) -> None:
-    """10. Resume on the card: drive, save_checkpoint, load into a fresh
+    """11. Resume on the card: drive, save_checkpoint, load into a fresh
     KissICP, one more frame on both: the same pose bits and origin (f32 map
     with the verify config, then a u16 map)."""
     from kiss_icp_tpu_torch.datasets.synthetic import SyntheticDataset

@@ -6,8 +6,8 @@ The `engine` section keeps the JAX package's fixed capacities: the port keeps
 fixed-shape padded buffers, so point budgets, map capacity and probe length
 stay first-class configuration.
 
-Keys whose feature is not ported yet are accepted with their defaults and
-refused by `check_supported` when set to anything else (see ROADMAP.md).
+Every key of the JAX package runs on the port except `engine.map_shards > 1`
+(the map-sharded engine, ROADMAP item 16), which `check_supported` refuses.
 """
 
 from __future__ import annotations
@@ -71,27 +71,47 @@ class EngineConfig:
     # Point-store layout of the voxel map: "f32" absolute coordinates, or
     # "u16" voxel-relative 16-bit fixed point (ops/hash_map.MapConfig).
     map_storage: str = "f32"
-    # Data-association strategy. "gather27" (default) and "pallas_fused"
-    # both run the fused 27-voxel NN kernel (kernels/nn27.py); the other
-    # modes of the JAX package are not ported yet.
+    # Data-association strategy (ops/registration.align_points_to_map):
+    #   "gather27", "pallas_fused" — the fused 27-voxel NN kernel
+    #                    (kernels/nn27.py) on CUDA tensors.
+    #   "loop27"       — the same kernel on CUDA tensors (the mode promises
+    #                    results bit-identical to gather27); the sequential
+    #                    27-offset loop (hash_map.query_nearest_loop) on CPU
+    #                    tensors.
+    #   "compact", "compact_loop" — the same query as gather27. The JAX
+    #                    package queries a dense view of the live voxels
+    #                    instead, with the same answers; the port builds
+    #                    the view once per frame (ops/compact_map.py) only
+    #                    to count the live voxels it cannot hold into
+    #                    FrameResult.num_dropped_map_voxels, as JAX does.
+    #   "cached"       — each source point's `assoc_cache_size` nearest
+    #                    candidates gathered once, GN re-selecting within
+    #                    them, re-gathered once any point moved more than
+    #                    `assoc_refresh_dist` (<= 0: 0.25 voxel). Not
+    #                    bit-identical to the others.
     nn_mode: str = "gather27"
     assoc_cache_size: int = 8
     assoc_refresh_dist: float = -1.0
     nn_live_capacity_log2: int = 15
     nn_probe_length: int = 8
-    # Frames per device execution of the chunked driver (not ported yet).
+    # Frames per call of the chunked driver; 0 = auto (16 for headless
+    # pipeline runs), 1 = one frame a call.
     pipeline_chunk: int = 0
-    # Deskew refinement passes (not ported yet; must stay 0).
+    # Deskew refinement passes: re-deskew the raw scan with the motion ICP
+    # just estimated and re-register from the converged pose (0 = reference
+    # semantics).
     deskew_refine: int = 0
+    # Re-deskew only the map-update cloud with the estimated motion.
     deskew_refine_map: bool = False
     # GN iterations per loop trip in the JAX package; exactly equivalent to
     # 1, so the port accepts it and changes nothing.
     gn_unroll: int = 1
-    # Ground-plane attitude stabilization (not ported yet; must stay 0).
+    # Ground-plane attitude stabilization strength (0 = off, reference
+    # semantics; ops/ground.py).
     ground_align: float = 0.0
     # Rolling-origin re-base trigger, in voxels (inf-norm of the local pose
-    # translation). The re-base itself is not ported yet: the port raises
-    # when the trigger fires. 0 disables the check.
+    # translation): past it, KissICP.maybe_rebase rolls the world origin
+    # forward (hash_map.rebase). 0 disables the check.
     rebase_trigger_voxels: int = 4096
     # Map sharding over several devices (not ported yet; must stay 1).
     map_shards: int = 1
@@ -111,27 +131,10 @@ class KISSConfig:
     engine: EngineConfig = field(default_factory=EngineConfig)
 
 
-# nn_mode values that run the fused NN kernel; every other mode of the JAX
-# package waits for ROADMAP item 14.
-SUPPORTED_NN_MODES = ("gather27", "pallas_fused")
-
-
 def check_supported(cfg: KISSConfig) -> None:
-    """Raise NotImplementedError for a config that asks for a feature the
-    port does not have yet, naming the ROADMAP item that brings it."""
-    e = cfg.engine
-    if e.nn_mode not in SUPPORTED_NN_MODES:
-        raise NotImplementedError(
-            f"engine.nn_mode={e.nn_mode!r} is not ported yet (ROADMAP item 14);"
-            f" use one of {SUPPORTED_NN_MODES}")
-    if int(e.deskew_refine) > 0 or bool(e.deskew_refine_map):
-        raise NotImplementedError(
-            "engine.deskew_refine / deskew_refine_map are not ported yet "
-            "(ROADMAP item 13)")
-    if float(e.ground_align) > 0.0:
-        raise NotImplementedError(
-            "engine.ground_align is not ported yet (ROADMAP item 13)")
-    if int(e.map_shards) > 1:
+    """Raise NotImplementedError for a config that asks for the one feature
+    the port does not have yet, naming the ROADMAP item that brings it."""
+    if int(cfg.engine.map_shards) > 1:
         raise NotImplementedError(
             "engine.map_shards > 1 is not ported yet (ROADMAP item 16)")
 

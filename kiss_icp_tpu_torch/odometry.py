@@ -34,8 +34,8 @@ import torch
 from torch.profiler import record_function
 
 from kiss_icp_tpu_torch.config.schema import KISSConfig, check_supported
-from kiss_icp_tpu_torch.ops import (hash_map, preprocess, registration, se3,
-                                    threshold, voxel)
+from kiss_icp_tpu_torch.ops import (ground, hash_map, preprocess, registration,
+                                    se3, threshold, voxel)
 
 
 class OdometryState(NamedTuple):
@@ -125,40 +125,87 @@ def register_frame(
     check_supported(config)
     mcfg = map_config(config)
     vsize = float(config.mapping.voxel_size)
+    e = config.engine
+    sigma = _sigma_for_frame(config, state)
+
+    def deskew_downsample(deskew_delta):
+        """Steps 1-2 for one deskew hypothesis: motion-compensate the raw
+        scan with `deskew_delta`, crop, and build the map-update cloud."""
+        with record_function("kiss/preprocess"):
+            prep = preprocess.preprocess(
+                points, timestamps, valid, deskew_delta,
+                max_range=float(config.data.max_range),
+                min_range=float(config.data.min_range),
+                deskew=bool(config.data.deskew),
+            )
+        with record_function("kiss/downsample"):
+            frame_ds = voxel.voxel_downsample(
+                prep.points, prep.valid, voxel_size=vsize * 0.5,
+                capacity=int(e.frame_capacity))
+        return prep, frame_ds
+
+    def deskew_register(deskew_delta, guess):
+        """Steps 1-5 for one deskew hypothesis: deskew_downsample, the ICP
+        source downsample, and registration against the map from `guess`."""
+        prep, frame_ds = deskew_downsample(deskew_delta)
+        with record_function("kiss/downsample"):
+            source = voxel.voxel_downsample(
+                frame_ds.points, frame_ds.valid, voxel_size=vsize * 1.5,
+                capacity=int(e.source_capacity))
+        with record_function("kiss/align"):
+            align = registration.align_points_to_map(
+                mcfg, state.map, source.points, source.valid, guess,
+                3.0 * sigma, sigma,
+                max_iterations=int(config.registration.max_num_iterations),
+                convergence=float(config.registration.convergence_criterion),
+                nn_mode=str(e.nn_mode),
+                nn_live_capacity_log2=int(e.nn_live_capacity_log2),
+                nn_probe_length=int(e.nn_probe_length),
+                assoc_cache_size=int(e.assoc_cache_size),
+                assoc_refresh_dist=(float(e.assoc_refresh_dist)
+                                    if float(e.assoc_refresh_dist) > 0 else 0.25 * vsize),
+            )
+        return prep, frame_ds, source, align
 
     # 1.-5. Deskew with the constant-velocity model, crop, double voxel
     #    downsample, adaptive threshold, robust ICP from the constant-
     #    velocity initial guess.
-    sigma = _sigma_for_frame(config, state)
     initial_guess = state.pose @ state.delta
-    with record_function("kiss/preprocess"):
-        prep = preprocess.preprocess(
-            points, timestamps, valid, state.delta,
-            max_range=float(config.data.max_range),
-            min_range=float(config.data.min_range),
-            deskew=bool(config.data.deskew),
-        )
-    with record_function("kiss/downsample"):
-        frame_ds = voxel.voxel_downsample(
-            prep.points, prep.valid, voxel_size=vsize * 0.5,
-            capacity=int(config.engine.frame_capacity))
-        source = voxel.voxel_downsample(
-            frame_ds.points, frame_ds.valid, voxel_size=vsize * 1.5,
-            capacity=int(config.engine.source_capacity))
-    with record_function("kiss/align"):
-        align = registration.align_points_to_map(
-            mcfg, state.map, source.points, source.valid, initial_guess,
-            3.0 * sigma, sigma,
-            max_iterations=int(config.registration.max_num_iterations),
-            convergence=float(config.registration.convergence_criterion),
-            nn_mode=str(config.engine.nn_mode),
-        )
+    prep, frame_ds, source, align = deskew_register(state.delta, initial_guess)
     # Degraded-mode guard: a non-finite registration falls back to the
     # constant-velocity prediction; `used_fallback` surfaces it.
     pose_finite = torch.all(torch.isfinite(align.pose))
     new_pose = torch.where(pose_finite, align.pose, initial_guess)
     # Project the rotation back onto SO(3) every frame (se3.orthonormalize).
     new_pose = se3.orthonormalize(new_pose)
+    total_iterations = align.num_iterations
+
+    # 5b. Deskew refinement (engine.deskew_refine passes): re-deskew the raw
+    #    scan with the motion just estimated and re-register from the
+    #    converged pose. A non-finite refine pass keeps the base pose; it is
+    #    no constant-velocity fallback, so `used_fallback` stays as the base
+    #    registration set it.
+    for _ in range(max(0, int(e.deskew_refine))):
+        delta_est = se3.inverse(state.pose) @ new_pose
+        prep, frame_ds, source, align = deskew_register(delta_est, new_pose)
+        refine_finite = torch.all(torch.isfinite(align.pose))
+        new_pose = se3.orthonormalize(torch.where(refine_finite, align.pose, new_pose))
+        total_iterations += align.num_iterations
+
+    # Downsample drops of the pass that made both output clouds, taken
+    # before 5c can rebuild the frame cloud from another deskew.
+    num_dropped_downsample = frame_ds.num_dropped + source.num_dropped
+
+    # 5c. Map-only deskew refinement (engine.deskew_refine_map): rebuild only
+    #    the map-update cloud from the raw scan re-deskewed with the
+    #    estimated motion; the pose is untouched.
+    if bool(e.deskew_refine_map):
+        prep, frame_ds = deskew_downsample(se3.inverse(state.pose) @ new_pose)
+
+    # 5d. Ground-plane attitude stabilization (engine.ground_align > 0,
+    #    ops/ground.py), fitted on the half-voxel cloud.
+    with record_function("kiss/ground"):
+        new_pose = ground.maybe_align(config, frame_ds.points, frame_ds.valid, new_pose)
 
     # 6.-7. Model deviation feeds the threshold estimator.
     model_deviation = se3.inverse(initial_guess) @ new_pose
@@ -191,10 +238,10 @@ def register_frame(
         source_points=source.points,
         source_valid=source.valid,
         sigma=sigma,
-        num_iterations=align.num_iterations,
+        num_iterations=total_iterations,
         num_correspondences=align.num_correspondences,
-        num_dropped_downsample=frame_ds.num_dropped + source.num_dropped,
-        num_dropped_map_voxels=insert_stats.num_dropped_voxels,
+        num_dropped_downsample=num_dropped_downsample,
+        num_dropped_map_voxels=insert_stats.num_dropped_voxels + align.num_dropped_compact,
         num_oob_points=insert_stats.num_oob_points,
         used_fallback=~pose_finite,
     )

@@ -222,38 +222,50 @@ def neighbor_shifts(device=None) -> torch.Tensor:
     return torch.where(digits == 2, -1, digits)
 
 
+def _probe(cfg: MapConfig, m: VoxelMap, neigh: torch.Tensor):
+    """Slot of each voxel `neigh` (..., 3): (slot (...,) int64, 0 where
+    absent; present (...,) bool). The first fingerprint match of the window
+    wins, then its exact key is checked: a fingerprint collision inside the
+    window must never surface another voxel's points as this voxel's."""
+    k = cfg.probe_length
+    rows = window_row(neigh, cfg.capacity_log2, k)
+    match = _window_fp(m.fprints, rows, k) == fingerprint(neigh)[..., None]
+    slot = (rows << (k.bit_length() - 1)) + _first_true(match)
+    present = torch.any(match, dim=-1) & torch.all(m.vkeys[slot] == neigh, dim=-1)
+    return torch.where(present, slot, torch.zeros_like(slot)), present
+
+
+def score_candidates(cfg: MapConfig, queries: torch.Tensor, neigh: torch.Tensor,
+                     present: torch.Tensor, counts: torch.Tensor,
+                     stored: torch.Tensor):
+    """Decoded candidate points and their squared distances to the queries.
+
+    queries (N, 3); neigh (N, ..., 3) the candidate voxels, present and
+    counts (N, ...) whether each is in the map and its point count, stored
+    (N, ..., P, 3) its stored row. Returns (pts (N, ..., P, 3), d2 (N, ...,
+    P) with +inf on unusable lanes). d2 = (dx^2 + dy^2) + dz^2, each step
+    rounded: the NN kernel computes it in exactly this order, so both
+    queries give the kernel's bits.
+    """
+    pts = decode_points(cfg, stored, neigh[..., None, :])
+    q = queries.view(queries.shape[0], *([1] * (pts.dim() - 2)), 3)
+    diff = q - pts
+    sq = diff * diff
+    d2 = (sq[..., 0] + sq[..., 1]) + sq[..., 2]
+    lanes = torch.arange(cfg.max_points_per_voxel, dtype=torch.int32,
+                         device=queries.device)
+    usable = (lanes < counts[..., None]) & present[..., None]
+    return pts, torch.where(usable, d2, torch.full_like(d2, float("inf")))
+
+
 def _candidate_slab(cfg: MapConfig, m: VoxelMap, queries: torch.Tensor):
     """Each query's 27-voxel candidate points: (pts (N,27,P,3), d2 (N,27,P)
     with +inf on unusable lanes)."""
-    k = cfg.probe_length
-    p = cfg.max_points_per_voxel
-    dev = queries.device
-
     qvox = voxel_ops.point_to_voxel(queries, cfg.voxel_size)  # (N, 3)
-    neigh = qvox[:, None, :] + neighbor_shifts(dev)[None, :, :]  # (N, 27, 3)
-    target_fp = fingerprint(neigh)  # (N, 27)
-    rows = window_row(neigh, cfg.capacity_log2, k)  # (N, 27)
-
-    match = _window_fp(m.fprints, rows, k) == target_fp[..., None]  # (N, 27, K)
-    has_voxel = torch.any(match, dim=-1)
-    slot = (rows << (k.bit_length() - 1)) + _first_true(match)
-    # A fingerprint collision inside the window must never surface another
-    # voxel's points as this voxel's.
-    has_voxel = has_voxel & torch.all(m.vkeys[slot] == neigh, dim=-1)
-    slot = torch.where(has_voxel, slot, torch.zeros_like(slot))
-
-    cnt = m.counts[slot]  # (N, 27)
-    pts = decode_points(cfg, _take_rows(m.points, slot), neigh[..., None, :])  # (N,27,P,3)
-
-    # d2 = (dx^2 + dy^2) + dz^2, each step rounded: the NN kernel computes
-    # it in exactly this order, so both give identical bits.
-    diff = queries[:, None, None, :] - pts
-    sq = diff * diff
-    d2 = (sq[..., 0] + sq[..., 1]) + sq[..., 2]  # (N, 27, P)
-    lanes = torch.arange(p, dtype=torch.int32, device=dev)
-    usable = (lanes[None, None, :] < cnt[..., None]) & has_voxel[..., None]
-    d2 = torch.where(usable, d2, torch.full_like(d2, float("inf")))
-    return pts, d2
+    neigh = qvox[:, None, :] + neighbor_shifts(queries.device)[None, :, :]  # (N, 27, 3)
+    slot, present = _probe(cfg, m, neigh)
+    return score_candidates(cfg, queries, neigh, present, m.counts[slot],
+                            _take_rows(m.points, slot))
 
 
 def query_nearest(cfg: MapConfig, m: VoxelMap, queries: torch.Tensor,
@@ -265,17 +277,70 @@ def query_nearest(cfg: MapConfig, m: VoxelMap, queries: torch.Tensor,
     46-70): ties go to the lowest (neighbor, lane) index. A query with no
     candidate gets a zero neighbor and an infinite distance.
     """
-    n = queries.shape[0]
-    p = cfg.max_points_per_voxel
     pts, d2 = _candidate_slab(cfg, m, queries)
-
-    d2_flat = d2.reshape(n, 27 * p)
+    n = d2.shape[0]
+    d2_flat = d2.reshape(n, -1)
     best = torch.argmin(d2_flat, dim=-1)  # first minimum
     best_d2 = torch.gather(d2_flat, 1, best[:, None])[:, 0]
-    nn = pts.reshape(n, 27 * p, 3)[torch.arange(n, device=queries.device), best]
+    nn = pts.reshape(n, -1, 3)[torch.arange(n, device=d2.device), best]
     has = torch.isfinite(best_d2)
     nn = torch.where(has[:, None], nn, torch.zeros_like(nn))
     return QueryResult(nn, torch.sqrt(best_d2), has & valid)
+
+
+def query_nearest_loop(cfg: MapConfig, m: VoxelMap, queries: torch.Tensor,
+                       valid: torch.Tensor) -> QueryResult:
+    """`query_nearest` as a sequential loop over the 27 neighbour offsets
+    with a running minimum (nn_mode "loop27" on CPU tensors; JAX
+    `hash_map.query_nearest_loop`): every intermediate is (N, P) shaped.
+
+    Wherever `query_nearest` finds a query, this finds it with the same
+    bits: the strict `<` keeps the lowest offset, the per-offset argmin the
+    lowest lane. A NaN candidate (a NaN query, or a stored NaN point) never
+    wins here, where it wins `query_nearest`'s argmin, as between JAX's two
+    versions. A query with no finite candidate gets a zero neighbour and an
+    infinite distance."""
+    n = queries.shape[0]
+    qvox = voxel_ops.point_to_voxel(queries, cfg.voxel_size)
+    shifts = neighbor_shifts(queries.device)
+    best_d2 = torch.full((n,), float("inf"), dtype=torch.float32, device=queries.device)
+    best_pt = torch.zeros((n, 3), dtype=torch.float32, device=queries.device)
+    rows = torch.arange(n, device=queries.device)
+    for j in range(27):
+        neigh = qvox + shifts[j]
+        slot, present = _probe(cfg, m, neigh)
+        pts, d2 = score_candidates(cfg, queries, neigh, present, m.counts[slot],
+                                   _take_rows(m.points, slot))  # (N, P)
+        lane = torch.argmin(d2, dim=-1)
+        lane_d2 = d2[rows, lane]
+        improve = lane_d2 < best_d2
+        best_d2 = torch.where(improve, lane_d2, best_d2)
+        best_pt = torch.where(improve[:, None], pts[rows, lane], best_pt)
+    return QueryResult(best_pt, torch.sqrt(best_d2), torch.isfinite(best_d2) & valid)
+
+
+def query_topc(cfg: MapConfig, m: VoxelMap, queries: torch.Tensor,
+               c: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The `c` nearest candidate map points per query from its 27-voxel
+    neighbourhood, nearest first: (cand (N, c, 3), cand_valid (N, c)),
+    cand_valid = finite distance. nn_mode "cached" gathers them once and
+    re-selects within them between GN iterations (JAX `hash_map.query_topc`).
+
+    JAX takes `lax.top_k(-d2)`, which orders in IEEE total order and breaks
+    ties by the lower index; `torch.topk` promises no order among ties. So
+    this is a stable ascending sort of d2 in the same total order: finite,
+    then +inf (absent lanes), then NaN (a NaN query's lanes) last, except
+    that a NaN with its sign bit set sorts first, as -(-NaN) leads JAX's
+    top_k. Only finite candidates are valid, so a NaN query's order never
+    reaches a result.
+    """
+    n = queries.shape[0]
+    pts, d2 = _candidate_slab(cfg, m, queries)
+    d2 = d2.reshape(n, -1)
+    key = torch.where(torch.isnan(d2) & torch.signbit(d2), torch.full_like(d2, -1.0), d2)
+    idx = torch.sort(key, dim=-1, stable=True).indices[:, :c]  # (N, c)
+    cand = torch.gather(pts.reshape(n, -1, 3), 1, idx[..., None].expand(n, idx.shape[1], 3))
+    return cand, torch.isfinite(torch.gather(d2, 1, idx))
 
 
 def _claim_slots(fprints, vkeys, coords, fp, rows, pending, *,

@@ -2,9 +2,10 @@
 
 Port of `kiss_icp_tpu/ops/registration.py` (reference Registration.cpp:
 52-167). The ICP loop is a host loop with one scalar read per iteration
-(the convergence test); each iteration runs the fused NN kernel
-(kernels/nn27.py) and the normal-equation kernel (kernels/linsys.py) on CUDA
-tensors, or their plain versions on CPU tensors.
+(the convergence test); each iteration runs an NN query (the fused NN
+kernel, kernels/nn27.py, in most modes; see `align_points_to_map`) and the
+normal-equation kernel (kernels/linsys.py) on CUDA tensors, or their plain
+versions on CPU tensors.
 
 Recentering for float32, as in the JAX package: the linear system is built
 with lever arms about the current sensor position `c` (source - c), and the
@@ -20,9 +21,9 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Tuple
 
 import torch
+from torch.profiler import record_function
 
-from kiss_icp_tpu_torch.config.schema import SUPPORTED_NN_MODES
-from kiss_icp_tpu_torch.ops import hash_map, se3
+from kiss_icp_tpu_torch.ops import compact_map, hash_map, se3
 
 
 class LinearSystem(NamedTuple):
@@ -84,6 +85,22 @@ class AlignResult(NamedTuple):
     pose: torch.Tensor  # (4, 4) new world pose of the scan
     num_iterations: int  # ICP iterations run
     num_correspondences: torch.Tensor  # () int32 — after the last iteration
+    num_dropped_compact: torch.Tensor  # () int32 — live voxels missing from the
+    #                                    compact view ("compact*" modes; 0 elsewhere)
+
+
+def _apply_increment(dx: torch.Tensor, center: torch.Tensor, src: torch.Tensor,
+                     t_icp: torch.Tensor):
+    """Apply one recentered GN increment: (src, t_icp) moved by exp(dx)
+    conjugated back to the world frame, and the step's norm at the WORLD
+    origin, which the convergence test reads, like the reference
+    (`dx.norm() < criterion`, Registration.cpp:163)."""
+    est = se3.se3_exp(dx)
+    est[:3, 3] += center - est[:3, :3] @ center
+    v, w = dx[:3], dx[3:]
+    v_world = v - torch.linalg.cross(w, center, dim=-1)
+    step = torch.sqrt(torch.sum(v_world * v_world) + torch.sum(w * w))
+    return se3.transform(est, src), est @ t_icp, step
 
 
 def gauss_newton_loop(
@@ -115,20 +132,67 @@ def gauss_newton_loop(
         dist, neighbors = query_fn(src)
         corr = torch.isfinite(dist) & valid & (dist < max_distance)
         dx = solve_increment(linsys_fn(src, neighbors, corr, kernel_scale, center))
-        est = se3.se3_exp(dx)
-        # Conjugate the recentered increment back to the world frame.
-        est[:3, 3] += center - est[:3, :3] @ center
-        src = se3.transform(est, src)
-        t_icp = est @ t_icp
+        src, t_icp, step = _apply_increment(dx, center, src, t_icp)
         it += 1
-        # Convergence on the increment expressed at the WORLD origin, like the
-        # reference (`dx.norm() < criterion`, Registration.cpp:163).
-        v, w = dx[:3], dx[3:]
-        v_world = v - torch.linalg.cross(w, center, dim=-1)
-        step = torch.sqrt(torch.sum(v_world * v_world) + torch.sum(w * w))
         if bool(step < convergence):
             break
     return t_icp, it
+
+
+def gauss_newton_loop_cached(
+    points: torch.Tensor,
+    valid: torch.Tensor,
+    initial_guess: torch.Tensor,
+    max_distance: torch.Tensor,
+    kernel_scale: torch.Tensor,
+    *,
+    gather_fn: Callable,
+    refresh_dist: float,
+    max_iterations: int,
+    convergence: float,
+    linsys_fn: Callable,
+) -> Tuple[torch.Tensor, int, int]:
+    """The ICP loop with cached data association (nn_mode "cached"; JAX
+    `registration.gauss_newton_loop_cached`).
+
+    `gather_fn(src) -> (cand (N, C, 3), cand_valid (N, C))` gathers each
+    source point's C nearest candidates; the iterations re-select the
+    nearest within them and gather again only once a valid point has moved
+    more than `refresh_dist` since the last gather. One host read per
+    iteration: the convergence test and the refresh test together.
+
+    Returns (t_icp (4, 4), iterations, re-gathers).
+    """
+    guess = initial_guess.to(torch.float32)
+    src = se3.transform(guess, points)
+    center = guess[:3, 3].contiguous()  # the K1 kernel reads it by pointer
+    t_icp = se3.identity(device=points.device)
+    rows = torch.arange(points.shape[0], device=points.device)
+    cand, cval = gather_fn(src)
+    ref_src = src
+    it = regathers = 0
+    need = False
+    while it < max_iterations:
+        if need:
+            cand, cval = gather_fn(src)
+            ref_src = src
+            regathers += 1
+        diff = src[:, None, :] - cand
+        sq = diff * diff
+        d2 = (sq[..., 0] + sq[..., 1]) + sq[..., 2]  # (N, C)
+        d2 = torch.where(cval, d2, torch.full_like(d2, float("inf")))
+        best = torch.argmin(d2, dim=-1)
+        dist = torch.sqrt(d2[rows, best])
+        corr = torch.isfinite(dist) & valid & (dist < max_distance)
+        dx = solve_increment(linsys_fn(src, cand[rows, best], corr, kernel_scale, center))
+        src, t_icp, step = _apply_increment(dx, center, src, t_icp)
+        it += 1
+        moved = torch.max(torch.where(valid, torch.linalg.norm(src - ref_src, dim=-1),
+                                      torch.zeros_like(dist)))
+        done, need = torch.stack([step < convergence, moved > refresh_dist]).tolist()
+        if done:
+            break
+    return t_icp, it, regathers
 
 
 def align_points_to_map(
@@ -143,36 +207,79 @@ def align_points_to_map(
     max_iterations: int,
     convergence: float,
     nn_mode: str = "gather27",
+    nn_live_capacity_log2: int = 15,
+    nn_probe_length: int = 8,
+    assoc_cache_size: int = 8,
+    assoc_refresh_dist: float = 0.25,
 ) -> AlignResult:
     """Register one body-frame source scan against the local map.
 
     Mirrors Registration::AlignPointsToMap (Registration.cpp:138-167): an
     empty map returns the guess with 0 iterations; otherwise iterate NN
-    association + robust GN. Both supported `nn_mode`s run the fused NN
-    kernel on CUDA tensors.
+    association + robust GN. The NN query of each `nn_mode`:
+
+      * "gather27", "pallas_fused", "compact", "compact_loop": the fused NN
+        kernel on CUDA tensors, its plain version on CPU tensors.
+      * "loop27": the same on CUDA tensors; on CPU tensors the 27-offset
+        loop (hash_map.query_nearest_loop), which gives the same answers.
+      * "compact*" also build the compact view (ops/compact_map.py) once per
+        call, for its drop count (`num_dropped_compact`) only: the JAX modes
+        query the view, whose answers are the sparse query's, and the card
+        gathers the sparse map's rows directly, so the port does not query
+        the view.
+      * "cached": `gauss_newton_loop_cached` over hash_map.query_topc's
+        `assoc_cache_size` candidates, re-gathered past `assoc_refresh_dist`.
+
+    The final correspondence count goes through the mode's own query.
     """
     # The kernels' wrappers import this module for the plain versions.
     from kiss_icp_tpu_torch.kernels import linsys, nn27
 
-    if nn_mode not in SUPPORTED_NN_MODES:
-        raise NotImplementedError(
-            f"nn_mode={nn_mode!r} is not ported yet (ROADMAP item 14)")
+    def sparse(src):
+        return nn27.query_nearest(cfg, m, src, valid)
+
+    if nn_mode in ("gather27", "pallas_fused", "cached", "compact", "compact_loop"):
+        nn = sparse
+    elif nn_mode == "loop27":
+        def nn(src):
+            if src.device.type == "cpu":
+                return hash_map.query_nearest_loop(cfg, m, src, valid)
+            return sparse(src)
+    else:
+        raise ValueError(f"unknown nn_mode: {nn_mode!r}")
+
     guess = initial_guess.to(torch.float32)
+    dev = points.device
+    num_dropped_compact = torch.zeros((), dtype=torch.int32, device=dev)
     if bool(hash_map.is_empty(m)):
-        return AlignResult(guess, 0, torch.zeros((), dtype=torch.int32,
-                                                 device=points.device))
+        return AlignResult(guess, 0, torch.zeros((), dtype=torch.int32, device=dev),
+                           num_dropped_compact)
 
-    def query_fn(src):
-        q = nn27.query_nearest(cfg, m, src, valid)
-        return q.distances, q.neighbors
+    if nn_mode in ("compact", "compact_loop"):
+        ccfg = compact_map.CompactConfig(live_capacity_log2=nn_live_capacity_log2,
+                                         hash_capacity_log2=nn_live_capacity_log2 + 2,
+                                         probe_length=nn_probe_length)
+        with record_function("kiss/compact_view"):
+            num_dropped_compact = compact_map.build_compact(cfg, ccfg, m).num_dropped
 
-    t_icp, iters = gauss_newton_loop(
-        points, valid, guess, max_distance, kernel_scale,
-        query_fn=query_fn, linsys_fn=linsys.build_linear_system,
-        max_iterations=max_iterations, convergence=convergence)
+    if nn_mode == "cached":
+        t_icp, iters, _ = gauss_newton_loop_cached(
+            points, valid, guess, max_distance, kernel_scale,
+            gather_fn=lambda src: hash_map.query_topc(cfg, m, src, assoc_cache_size),
+            refresh_dist=float(assoc_refresh_dist), max_iterations=max_iterations,
+            convergence=convergence, linsys_fn=linsys.build_linear_system)
+    else:
+        def query_fn(src):
+            q = nn(src)
+            return q.distances, q.neighbors
+
+        t_icp, iters = gauss_newton_loop(
+            points, valid, guess, max_distance, kernel_scale,
+            query_fn=query_fn, linsys_fn=linsys.build_linear_system,
+            max_iterations=max_iterations, convergence=convergence)
 
     pose = t_icp @ guess
     # Final correspondence count for diagnostics (one extra association).
-    q = nn27.query_nearest(cfg, m, se3.transform(pose, points), valid)
+    q = nn(se3.transform(pose, points))
     n_corr = torch.sum(q.found & (q.distances < max_distance), dtype=torch.int32)
-    return AlignResult(pose, iters, n_corr)
+    return AlignResult(pose, iters, n_corr, num_dropped_compact)

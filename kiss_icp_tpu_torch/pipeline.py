@@ -288,10 +288,10 @@ class OdometryPipeline:
                 f"voxel map dropped {dropped_map} voxels this frame: "
                 "raise engine.map_capacity_log2 / engine.probe_length — "
                 "accuracy degrades silently otherwise. (With a compact "
-                "nn_mode this can also mean the live-voxel view overflowed: "
-                "registration then falls back to the sparse-map query — "
-                "accuracy is preserved but the compact speed advantage is "
-                "lost; raise engine.nn_live_capacity_log2.)",
+                "nn_mode this can also mean the live-voxel view overflowed, "
+                "counted as the JAX package counts it; the port queries the "
+                "sparse map, so accuracy is unaffected; raise "
+                "engine.nn_live_capacity_log2.)",
                 RuntimeWarning,
                 stacklevel=3,
             )

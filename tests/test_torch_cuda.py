@@ -316,3 +316,137 @@ def test_checkpoint_on_card_resumes_bit_identical(cuda, storage, tmp_path):
     resumed.register_frame(*scans[7])
     np.testing.assert_array_equal(resumed.last_pose, icp.last_pose)
     np.testing.assert_array_equal(resumed.origin, icp.origin)
+
+
+def _queries(dev, n=4096, seed=5):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.uniform(-14, 14, (n, 3)).astype(np.float32)).to(dev)
+    q[::97, 2] = float("nan")
+    return q, torch.from_numpy(rng.random(n) > 0.1).to(dev)
+
+
+def _d2(q, nb):
+    """(dx^2 + dy^2) + dz^2 of query to neighbour, each step rounded, on the
+    tensors' own device (the order of hash_map.score_candidates and K2)."""
+    sq = (q - nb) * (q - nb)
+    return (sq[:, 0] + sq[:, 1]) + sq[:, 2]
+
+
+@pytest.mark.parametrize("storage", ["f32", "u16"])
+def test_loop27_on_card_launches_k2_and_equals_cpu_loop(cuda, storage):
+    """nn_mode "loop27" runs K2 on the card; its answers are those of the
+    27-offset loop wherever a query is found: bit for bit on the card. On
+    the CPU the neighbours and their d² are bit-equal too; the distances
+    differ only by the final sqrt: K2's is the correctly rounded root of d²
+    (f64 sqrt rounded to f32), the CPU's torch.sqrt is one ulp away from it
+    on some values (its vectorised path is not correctly rounded)."""
+    cfg, m = _map(storage, cuda)
+    q, valid = _queries(cuda)
+    before = nn27.query_nearest.launches
+    res = registration.align_points_to_map(
+        cfg, m, q[:512].nan_to_num(), valid[:512], torch.eye(4, device=cuda),
+        torch.tensor(3.0, device=cuda), torch.tensor(1.0, device=cuda),
+        max_iterations=5, convergence=1e-4, nn_mode="loop27")
+    torch.cuda.synchronize()
+    assert nn27.query_nearest.launches == before + res.num_iterations + 1
+    got = nn27.query_nearest(cfg, m, q, valid)
+    loop = hm.query_nearest_loop(cfg, m, q, valid)
+    assert torch.equal(loop.found, got.found)
+    f = got.found
+    assert torch.equal(loop.distances[f], got.distances[f])
+    assert torch.equal(loop.neighbors[f], got.neighbors[f])
+    ref = hm.query_nearest_loop(cfg, _map_cpu(m), q.cpu(), valid.cpu())
+    f = ref.found
+    assert torch.equal(got.found.cpu(), f)
+    assert torch.equal(got.neighbors.cpu()[f], ref.neighbors[f])
+    d2 = _d2(q.cpu(), ref.neighbors)
+    assert torch.equal(_bits(_d2(q, got.neighbors).cpu()[f]), _bits(d2[f]))
+    assert torch.equal(_bits(ref.distances[f]), _bits(torch.sqrt(d2)[f]))
+    exact = torch.sqrt(d2[f].double()).float()
+    assert torch.equal(_bits(got.distances.cpu()[f]), _bits(exact))
+    ulps = (_bits(ref.distances[f]) - _bits(exact)).abs()
+    assert int(ulps.max()) <= 1
+
+
+@pytest.mark.parametrize("nn_mode", ["compact", "compact_loop"])
+@pytest.mark.parametrize("storage", ["f32", "u16"])
+def test_compact_view_on_card(cuda, storage, nn_mode):
+    """build_compact on the card gives the CPU's view bit for bit, and a
+    registration in a compact mode on the card launches K2 once an
+    iteration and once for the final count, and gives gather27's bits."""
+    from kiss_icp_tpu_torch.ops import compact_map as cm
+
+    cfg, m = _map(storage, cuda)
+    ccfg = cm.CompactConfig(live_capacity_log2=13, hash_capacity_log2=15)
+    view = cm.build_compact(cfg, ccfg, m)
+    ref_view = cm.build_compact(cfg, ccfg, _map_cpu(m))
+    for name, a, b in zip(cm.CompactMap._fields, view, ref_view):
+        assert torch.equal(_bits(a), _bits(b)), name
+    assert int(view.num_dropped) == 0
+    q, valid = _queries(cuda)
+    args = (cfg, m, q[:512].nan_to_num(), valid[:512], torch.eye(4, device=cuda),
+            torch.tensor(3.0, device=cuda), torch.tensor(1.0, device=cuda))
+    common = dict(max_iterations=5, convergence=1e-4, nn_live_capacity_log2=13)
+    ref = registration.align_points_to_map(*args, nn_mode="gather27", **common)
+    before = nn27.query_nearest.launches
+    res = registration.align_points_to_map(*args, nn_mode=nn_mode, **common)
+    torch.cuda.synchronize()
+    assert nn27.query_nearest.launches == before + res.num_iterations + 1
+    assert torch.equal(res.pose, ref.pose) and res.num_iterations == ref.num_iterations
+    assert int(res.num_dropped_compact) == 0
+
+
+def test_query_topc_on_card_equals_cpu(cuda):
+    cfg, m = _map("f32", cuda)
+    q, _ = _queries(cuda)
+    cand, cval = hm.query_topc(cfg, m, q, 8)
+    ref_cand, ref_cval = hm.query_topc(cfg, _map_cpu(m), q.cpu(), 8)
+    assert torch.equal(cval.cpu(), ref_cval)
+    assert torch.equal(cand.cpu()[ref_cval], ref_cand[ref_cval])
+    assert int(ref_cval.sum()) > 10_000
+
+
+def test_ground_fit_on_card_equals_cpu(cuda):
+    from kiss_icp_tpu_torch.ops import ground
+
+    rng = np.random.default_rng(6)
+    r, th = rng.uniform(4, 28, 6000), rng.uniform(0, 2 * np.pi, 6000)
+    pts = np.stack([r * np.cos(th), r * np.sin(th),
+                    0.02 * r * np.cos(th) - 1.7 + rng.normal(0, 0.01, 6000)], 1)
+    pts = torch.from_numpy(pts.astype(np.float32))
+    valid = torch.from_numpy(rng.random(6000) > 0.1)
+    assert torch.equal(_bits(ground.nanquantile(pts[:, 2].to(cuda), 0.15)),
+                       _bits(ground.nanquantile(pts[:, 2], 0.15)))
+    got = ground.estimate_ground_plane(pts.to(cuda), valid.to(cuda))
+    ref = ground.estimate_ground_plane(pts, valid)
+    assert bool(got.ok) and bool(ref.ok) and int(got.num_points) == int(ref.num_points)
+    torch.testing.assert_close(got.normal_body.cpu(), ref.normal_body, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("engine", [
+    dict(nn_mode="loop27"), dict(nn_mode="compact"), dict(nn_mode="compact_loop"),
+    dict(nn_mode="cached"), dict(nn_mode="compact", nn_live_capacity_log2=6),
+    dict(deskew_refine=1), dict(deskew_refine_map=True), dict(ground_align=0.1)],
+    ids=lambda e: "-".join(f"{k}={v}" for k, v in e.items()))
+def test_small_drive_modes_card_match_cpu(cuda, engine):
+    """Every mode and option: 3 frames on the card and on the CPU within
+    atol 1e-4, iterations and drops equal; K1 launched on the card."""
+    from kiss_icp_tpu_torch.odometry import KissICP
+
+    cfg = _drive_config(trigger=0)
+    for key, value in engine.items():
+        setattr(cfg.engine, key, value)
+    scans = _drive_scans(3)
+    runs = {}
+    before = linsys.build_linear_system.launches
+    for dev in ("cuda", "cpu"):
+        icp = KissICP(cfg, device=dev)
+        runs[dev] = []
+        for f, t in scans:
+            icp.register_frame(f, t)
+            runs[dev].append((icp.last_pose, icp.last_result.num_iterations,
+                              icp.last_overflow()))
+    assert linsys.build_linear_system.launches > before
+    for (pg, ig, dg), (pc, ic, dc) in zip(runs["cuda"], runs["cpu"]):
+        np.testing.assert_allclose(pg, pc, atol=1e-4)
+        assert ig == ic and dg == dc

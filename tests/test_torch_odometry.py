@@ -135,9 +135,11 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 def test_unported_options_refused_at_construction():
     cfg = _small(KISSConfig)
-    cfg.engine.nn_mode = "cached"
-    with pytest.raises(NotImplementedError, match="item 14"):
+    cfg.engine.map_shards = 2
+    with pytest.raises(NotImplementedError, match="item 16"):
         odometry.KissICP(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 16"):
+        odometry.create_odometry(cfg, device="cpu")
 
 
 def test_rebase_trigger_raises_instead_of_drifting_on():
