@@ -38,6 +38,13 @@ non-zero without printing the final result line):
                the origin rolled every 16 voxels against run A
  11. resume    drive, save_checkpoint, load into a fresh KissICP, one more
                frame on both: bit-identical (f32 and u16 maps)
+ 12. aot       io/aot.py at the drive's full width: the per-frame artifact
+               (save_step on the card, load_step) over the drive's 12 scans,
+               bit-identical to the drive with its K1 and K2 launches; the
+               chunked artifact (K = 4, 3 chunks) bit-identical to the live
+               chunked step; with donate_state false, one step of the live
+               step and of its artifact leaves the state it started from
+               bit-identical
 Each mode and option is driven with the kernels' launch counters set to 0
 just before it and read just after. Then one JSON line of per-kernel
 numbers, and the result line
@@ -99,14 +106,15 @@ OPTIONS = {"deskew_refine=1": dict(deskew_refine=1),
 # leaves in memory: the kernels' launch counters (0 when the process
 # starts), each chunk's GN iterations, the frames done at each origin roll,
 # the engine's own time (dispatch_chunk and the poses' read, without the
-# loading of scans in between) and the pipeline's totals.
+# loading of scans in between; and the first chunk's dispatch alone, which
+# holds the process's first kernel calls) and the pipeline's totals.
 CLI_DRIVER = r"""
 import json, sys, time
 from kiss_icp_tpu_torch import odometry, pipeline
 from kiss_icp_tpu_torch.kernels import linsys, nn27
 from kiss_icp_tpu_torch.tools import cmd
 
-seen = {"pipes": [], "iters": [], "rolls": [], "engine_s": 0.0}
+seen = {"pipes": [], "iters": [], "rolls": [], "engine_s": 0.0, "chunk_s": []}
 K, P = odometry.KissICP, pipeline.OdometryPipeline
 init, dispatch, read, rebase = P.__init__, K.dispatch_chunk, K.summary_poses, K.maybe_rebase
 
@@ -118,6 +126,7 @@ def k_dispatch(self, *a, **k):
     t0 = time.perf_counter()
     s = dispatch(self, *a, **k)
     seen["engine_s"] += time.perf_counter() - t0
+    seen["chunk_s"].append(time.perf_counter() - t0)
     seen["iters"].append(s.num_iterations)
     return s
 
@@ -144,6 +153,7 @@ print("cli-run " + json.dumps({
                            "k2": nn27.query_nearest.launches},
     "iterations": iters, "rolls": seen["rolls"],
     "engine_ms_per_frame": seen["engine_s"] * 1e3 / len(iters),
+    "first_dispatch_s": seen["chunk_s"][0],
     "results": p.results.as_dict(), "results_dir": str(p.results_dir),
     "sequence": str(p.dataset_sequence), "chunk": p._effective_chunk,
     "device": str(p.odometry.device), "origin": p.odometry.origin.tolist(),
@@ -458,6 +468,14 @@ def main() -> int:
     k1_ms, k1_plain_ms = paired_times(
         lambda: linsys.build_linear_system(*k1_args),
         lambda: registration.build_linear_system(*k1_args), 200, 50)
+    # What the operator's dispatch adds to an eager call: each kernel's CUDA
+    # implementation called directly (the ctypes launch alone), issued the
+    # same way.
+    direct_ms = {
+        "k1": min(time_ms(lambda: linsys._linsys_cuda(*k1_args), 200)[1] for _ in range(2)),
+        "k2": min(time_ms(lambda: nn27._nn27_cuda(
+            q2, v2, m.vkeys, m.fprints, m.counts, m.points, float(mcfg.voxel_size),
+            int(mcfg.probe_length)), 100)[1] for _ in range(2))}
     # Launch floor: one launch of PyTorch's one-element elementwise kernel,
     # timed the same way; no kernel of any size can take less per call.
     one = torch.zeros(1, **f32)
@@ -504,24 +522,28 @@ def main() -> int:
         return (tb, "bytes") if tb >= tf else (tf, "operations")
 
     kernels = []
-    for kname, src, replaces, nl, err_, ms, pms, nb, fl in (
+    for kname, src, replaces, nl, err_, ms, pms, nb, fl, dms in (
             ("linsys (K1)", "kiss_icp_tpu_torch/csrc/linsys.cu",
              "kiss_icp_tpu/ops/pallas_kernels.py:31", launches["k1"], k1_err,
-             k1_ms, k1_plain_ms, k1_bytes, k1_flops),
+             k1_ms, k1_plain_ms, k1_bytes, k1_flops, direct_ms["k1"]),
             ("nn27 (K2)", "kiss_icp_tpu_torch/csrc/nn27.cu",
              "kiss_icp_tpu/ops/pallas_nn.py:60", launches["k2"], k2_err,
-             k2_ms, k2_plain_ms, k2_bytes, k2_flops)):
+             k2_ms, k2_plain_ms, k2_bytes, k2_flops, direct_ms["k2"])):
         b_ms, b_by = bound(nb, fl)
         # ms / plain_ms: device time per call (CUDA-graph replay); the eager
-        # times add the host work of issuing the call from Python.
+        # times add the host work of issuing the call from Python, through
+        # the registered operator (eager_ms) or straight to its CUDA
+        # implementation (eager_direct_ms).
         kernels.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": nl, "max_abs_err": err_,
                         "ms": ms[0], "plain_ms": pms[0], "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": None, "floor_ms": floor_ms,
-                        "eager_ms": ms[1],
+                        "eager_ms": ms[1], "eager_direct_ms": dms,
                         "plain_eager_ms": pms[1], "bytes": nb, "flops": fl})
         print(f"times: {kname}: {ms[0] * 1e3:.2f} us/call on the device, "
-              f"{ms[1] * 1e3:.2f} us issued eagerly (plain {pms[0] * 1e3:.2f} / "
+              f"{ms[1] * 1e3:.2f} us issued eagerly through the operator, "
+              f"{dms * 1e3:.2f} us straight to its CUDA implementation (plain "
+              f"{pms[0] * 1e3:.2f} / "
               f"{pms[1] * 1e3:.2f} us); bound {b_ms * 1e3:.4f} us by {b_by} "
               f"({nb} B, {fl} flop by type); launch floor {floor_ms * 1e3:.2f} us; "
               f"on {smi}", flush=True)
@@ -530,6 +552,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         cli_launches = phase_cli(Path(tmp), smi)
         phase_resume(Path(tmp))
+        mode_launches.update(phase_aot(cfg, scans, drive, Path(tmp), smi))
     for k, key in zip(kernels, ("k1", "k2")):
         k["launches_cli"] = {run: cli_launches[run][key] for run in ("A", "B")}
         k["launches_modes"] = {name: counts[key] for name, counts in mode_launches.items()}
@@ -599,8 +622,9 @@ def small_drive(engine: dict):
     runs = {}
     for d in ("cuda", "cpu"):
         eng = KissICP(small, device=d)
-        runs[d] = [(eng.register_frame(*sds[i]), eng.last_pose, eng.last_result.num_iterations,
-                    eng.last_overflow())[1:] for i in range(3)]
+        runs[d] = [(eng.register_frame(*sds[i]), eng.last_pose,
+                    int(eng.last_result.num_iterations), eng.last_overflow())[1:]
+                   for i in range(3)]
     err = float(np.abs(np.stack([r[0] for r in runs["cuda"]])
                        - np.stack([r[0] for r in runs["cpu"]])).max())
     label = "small drive" + (f" {engine}" if engine else "")
@@ -714,7 +738,8 @@ def phase_options(cfg, scans, ds, smi: str) -> dict:
     print(f"options cli C: `python -m kiss_icp_tpu_torch.tools.cmd` with {every}, "
           f"{frames} frames x 64x1024 beams, chunk {run['chunk']}: within {diff:.3e} of the "
           f"same drive in this process, iterations {run['iterations']}, launches {k}, "
-          f"engine {run['engine_ms_per_frame']:.3f} ms/frame; on {smi}", flush=True)
+          f"engine {run['engine_ms_per_frame']:.3f} ms/frame (one chunk: the process's first "
+          f"kernel calls included); on {smi}", flush=True)
     return out
 
 
@@ -889,7 +914,7 @@ def phase_cli(tmp: Path, smi: str) -> dict:
               f"Average Frequency (no warmup) {r['Average Frequency (no warmup)']:.3f} Hz, "
               f"Average Runtime {r['Average Runtime']:.3f} ms (scan loading included), "
               f"engine {run['engine_ms_per_frame']:.3f} ms/frame (dispatch and poses read "
-              f"only); ATE {r['Absolute Trajectory Error (ATE)']:.6f} m; "
+              f"only; the first chunk's dispatch {run['first_dispatch_s']:.2f} s); ATE {r['Absolute Trajectory Error (ATE)']:.6f} m; "
               f"GN iterations {sum(run['iterations'])}; origin rolls at frames "
               f"{run['rolls']}; launches {run['launches']}; on {smi}", flush=True)
     print(f"cli: A against the JAX golden: frames 1-12 within {diff[:12].max():.3e} m "
@@ -931,6 +956,136 @@ def phase_resume(tmp: Path) -> None:
         report.append(f"{storage}: {frames} frames, origin {a.origin.tolist()}")
     print("resume: save_checkpoint, load into a fresh KissICP, one more frame: pose and "
           "origin bit-identical (" + "; ".join(report) + ")", flush=True)
+
+
+def phase_aot(cfg, scans, drive: dict, tmp: Path, smi: str) -> dict:
+    """12. The AOT artifact (io/aot.py) on the card, at the drive's config.
+    Returns each artifact run's launches."""
+    import torch
+
+    from kiss_icp_tpu_torch.io import aot
+    from kiss_icp_tpu_torch.kernels import linsys, nn27
+    from kiss_icp_tpu_torch.odometry import (KissICP, copy_map, init_state,
+                                             make_chunked_step, make_step)
+
+    pad = KissICP(cfg)  # pads scans as the drive did, and copies them over
+
+    def padded(frames):
+        chunk, _ = pad.build_chunk([f for f, _ in frames], [t for _, t in frames])
+        return pad._to_device(chunk)
+
+    def reset():
+        linsys.build_linear_system.launches = 0
+        nn27.query_nearest.launches = 0
+
+    def counts():
+        return {"k1": linsys.build_linear_system.launches, "k2": nn27.query_nearest.launches}
+
+    def made(label, chunk=0, config=cfg):
+        path = tmp / f"{label}.kiss_aot.npz"
+        export_s = aot.save_step(path, config, chunk=chunk)
+        t0 = time.perf_counter()
+        step, meta = aot.load_step(path)
+        check(meta["device_type"] == "cuda" and meta["aot_chunk"] == chunk,
+              f"aot {label}: metadata {meta}")
+        return step, (f"export {export_s:.1f} s, {path.stat().st_size} B, "
+                      f"load {time.perf_counter() - t0:.1f} s")
+
+    # Per frame: the drive's 12 scans through the artifact, each frame timed
+    # on the host clock around its padding, copy, step and pose read.
+    step, made_line = made("step")
+    state = init_state(cfg)
+    poses, iters, frame_ms = [], [], []
+    reset()
+    for scan in scans:
+        t0 = time.perf_counter()
+        pts, ts, valid = padded([scan])
+        state, res = step(state, pts[0], ts[0], valid[0])
+        poses.append(res.pose.double().cpu().numpy())
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        iters.append(int(res.num_iterations))
+    out = {"aot step": counts()}
+    poses = np.stack(poses)
+    check(np.array_equal(poses, drive["poses"]) and iters == drive["iters"],
+          f"aot step: poses or iterations differ from the drive (max |diff| "
+          f"{np.abs(poses - drive['poses']).max():.3e}; iterations {iters} against "
+          f"{drive['iters']})")
+    check(out["aot step"] == drive["launches"],
+          f"aot step: launches {out['aot step']}, drive {drive['launches']}")
+    p50 = float(np.median(frame_ms[1:]))
+    print(f"aot step: {made_line}; {N_FRAMES} frames bit-identical to the drive, iterations "
+          f"{iters}, launches {out['aot step']} (drive {drive['launches']}); p50 {p50:.2f} "
+          f"ms/frame after frame 1 against the drive's {drive['p50']:.2f}; on {smi}",
+          flush=True)
+    del step, state
+
+    # Chunked: K = 4, frames 0-11 as 3 chunks, against the live chunked step.
+    k = 4
+    step, made_line = made("chunked", chunk=k)
+    live = make_chunked_step(cfg)
+    lstate, astate = init_state(cfg), init_state(cfg)
+    lsum, asum = [], []
+    reset()
+    for i in range(0, N_FRAMES, k):
+        views = padded(scans[i:i + k])
+        astate, s = step(astate, *views)
+        asum.append(s)
+    out["aot chunked"] = counts()
+    for i in range(0, N_FRAMES, k):
+        lstate, s = live(lstate, *padded(scans[i:i + k]))
+        lsum.append(s)
+    for field in ("poses", "num_iterations", "sigmas", "num_correspondences"):
+        a = torch.cat([getattr(s, field) for s in asum])
+        b = torch.cat([getattr(s, field) for s in lsum])
+        check(torch.equal(a, b), f"aot chunked: {field} differs from the live chunked step")
+    for field, a, b in zip(astate.map._fields, astate.map, lstate.map):
+        check(torch.equal(_bits(a), _bits(b)), f"aot chunked: map {field} differs")
+    print(f"aot chunked: K = {k} (unrolled), {made_line}; 3 chunks bit-identical to the "
+          f"live chunked step in poses, iterations, sigmas, correspondences and the map; "
+          f"launches {out['aot chunked']}; on {smi}", flush=True)
+    del step, astate
+
+    # donate_state false: one step from the 12-frame state leaves it
+    # bit-identical, live and through its artifact; timed against the
+    # donating step (which writes a copy of the map made outside the timing).
+    keep = engine_config(cfg, dict(donate_state=False))
+    snapshot = [t.clone() for t in torch.utils._pytree.tree_leaves(lstate)]
+
+    def intact():
+        return all(torch.equal(_bits(a), _bits(b)) for a, b in
+                   zip(torch.utils._pytree.tree_leaves(lstate), snapshot))
+
+    frame = [t[0] for t in padded([scans[-1]])]
+
+    def timed(fn, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_ = fn(state, *frame)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out_
+
+    copy_ms, donate_ms, ref = [], [], None
+    for order in ("dc", "cd", "cd", "dc"):
+        for which in order:
+            if which == "c":
+                ms, (_, res) = timed(make_step(keep), lstate)
+                copy_ms.append(ms)
+                ref = res.pose if ref is None else ref
+                check(torch.equal(res.pose, ref), "aot donate: two copying steps differ")
+                check(intact(), "aot donate: the copying step wrote its input state")
+            else:
+                ms, (_, res) = timed(make_step(cfg), lstate._replace(map=copy_map(lstate.map)))
+                donate_ms.append(ms)
+    step, made_line = made("step-keep", config=keep)
+    _, res = step(lstate, *frame)
+    check(intact(), "aot donate: the artifact wrote its input state")
+    check(torch.equal(res.pose, ref), "aot donate: the artifact's pose differs from the live step")
+    print(f"aot donate: donate_state false, one step from the 12-frame state: the state "
+          f"stays bit-identical, live and through its artifact ({made_line}), same pose; "
+          f"step {np.median(copy_ms):.2f} ms copying the map against {np.median(donate_ms):.2f} "
+          f"ms donating it (median of {len(copy_ms)} each, host clock with a sync); on {smi}",
+          flush=True)
+    return out
 
 
 if __name__ == "__main__":

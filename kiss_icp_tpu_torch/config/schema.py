@@ -62,7 +62,10 @@ class EngineConfig:
     probe_length: int = 16
     # Max same-frame insert candidates considered per map voxel.
     group_capacity: int = 16
-    # Accepted for compatibility; the port updates the map in place always.
+    # True: a step updates the caller's map in place (the state passed in
+    # must not be used again). False: it inserts into a copy and leaves the
+    # caller's state as it was (odometry.register_frame, make_step,
+    # make_chunked_step). KissICP owns its state and always donates.
     donate_state: bool = True
     # Accepted for compatibility only. The path a tensor takes is decided by
     # its device: a CUDA tensor always runs the CUDA kernels, a CPU tensor

@@ -127,6 +127,13 @@ def library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build_all() / f"{name}.so"))
 
 
+def check_device(t, name: str) -> None:
+    """Raise unless `t` lies on the CPU (the plain version) or on CUDA (the
+    kernel)."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: expected a CPU or CUDA tensor, got {t.device}")
+
+
 def check_tensor(t, name: str, dtype, shape, device) -> int:
     """Raise unless `t` is a contiguous `dtype` tensor of `shape` on the CUDA
     `device`, aligned to its element size: a kernel reads it through a raw

@@ -1,16 +1,20 @@
-"""K1 wrapper: the robust normal equations of one ICP iteration.
+"""K1: the robust normal equations of one ICP iteration, as the operator
+`kiss_icp_torch::linsys`.
 
 CUDA kernel: `csrc/linsys.cu` (replaces the Pallas kernel
 `kiss_icp_tpu/ops/pallas_kernels.py::_linsys_kernel`; the source says what
 bounds it and what its design does about that). One launch per call, with no
-scratch memory and no float atomics. Plain PyTorch version:
-`ops/registration.build_linear_system`, taken only for CPU tensors.
+scratch memory and no float atomics. The operator's CPU implementation is
+the plain PyTorch version, `ops/registration.build_linear_system`; its CUDA
+implementation launches the kernel, or raises. A registered operator is what
+`torch.export` records, so an exported step calls the same kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
@@ -28,24 +32,20 @@ def _entry():
     return fn, _build.stream_getter()
 
 
-def build_linear_system(
-    source: torch.Tensor,
-    targets: torch.Tensor,
-    weights_mask: torch.Tensor,
-    kernel_scale: torch.Tensor,
-    center: torch.Tensor,
-) -> LinearSystem:
-    """(JTJ (6,6), JTr (6,), count ()) of the masked correspondences.
+@torch.library.custom_op("kiss_icp_torch::linsys", mutates_args=(), device_types="cpu")
+def linsys(source: torch.Tensor, targets: torch.Tensor, weights_mask: torch.Tensor,
+           kernel_scale: torch.Tensor, center: torch.Tensor
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(JTJ (6,6) f32, JTr (6,) f32, count () i32); on the CPU, the plain
+    version."""
+    return tuple(registration.build_linear_system(
+        source, targets, weights_mask, kernel_scale, center))
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    count one launch in `build_linear_system.launches`), or raise.
-    """
+
+@linsys.register_kernel("cuda")
+def _linsys_cuda(source, targets, weights_mask, kernel_scale, center):
+    """Launch the kernel (one count in `build_linear_system.launches`)."""
     dev = source.device
-    if dev.type == "cpu":
-        return registration.build_linear_system(
-            source, targets, weights_mask, kernel_scale, center)
-    if dev.type != "cuda":
-        raise ValueError(f"source: expected a CPU or CUDA tensor, got {dev}")
     fn, stream = _entry()
     n = source.shape[0]
     check = _build.check_tensor
@@ -67,7 +67,28 @@ def build_linear_system(
              count.data_ptr(), stream(dev.index))
     _build.check_error(err, "linsys kernel")
     build_linear_system.launches += 1
-    return LinearSystem(jtj, jtr, count)
+    return jtj, jtr, count
+
+
+@linsys.register_fake
+def _linsys_fake(source, targets, weights_mask, kernel_scale, center):
+    return (source.new_empty((6, 6)), source.new_empty((6,)),
+            source.new_empty((), dtype=torch.int32))
+
+
+def build_linear_system(
+    source: torch.Tensor,
+    targets: torch.Tensor,
+    weights_mask: torch.Tensor,
+    kernel_scale: torch.Tensor,
+    center: torch.Tensor,
+) -> LinearSystem:
+    """(JTJ (6,6), JTr (6,), count ()) of the masked correspondences,
+    through the operator: the plain version for CPU tensors, the kernel for
+    CUDA tensors (counted in `build_linear_system.launches`). Tensors on
+    any other device raise."""
+    _build.check_device(source, "source")
+    return LinearSystem(*linsys(source, targets, weights_mask, kernel_scale, center))
 
 
 build_linear_system.launches = 0

@@ -1,16 +1,21 @@
-"""K2 wrapper: the fused 27-voxel nearest-neighbour query.
+"""K2: the fused 27-voxel nearest-neighbour query, as the operator
+`kiss_icp_torch::nn27`.
 
 CUDA kernel: `csrc/nn27.cu` (replaces the Pallas kernel
 `kiss_icp_tpu/ops/pallas_nn.py::_candidate_kernel` and the XLA probe and
 gather around it; the source says what bounds it and what its design does
-about that). Plain PyTorch version: `ops/hash_map.query_nearest`, taken only
-for CPU tensors; the kernel matches it bit for bit.
+about that). The operator's CPU implementation is the plain PyTorch version,
+`ops/hash_map.query_nearest`, which the kernel matches bit for bit; its CUDA
+implementation launches the kernel, or raises. The map's static parameters
+(voxel size, probe length) are the operator's float and int arguments; the
+rest follow from the tables' shapes and types.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -29,6 +34,15 @@ def _entry():
     return fn, _build.stream_getter()
 
 
+def _map_config(fprints: torch.Tensor, points: torch.Tensor, voxel_size: float,
+                probe_length: int) -> MapConfig:
+    """The query's view of the map's static configuration."""
+    return MapConfig(voxel_size=voxel_size, max_points_per_voxel=points.shape[1],
+                     capacity_log2=fprints.shape[0].bit_length() - 1,
+                     probe_length=probe_length,
+                     storage="u16" if points.dtype == torch.uint16 else "f32")
+
+
 @functools.lru_cache(maxsize=None)
 def _map_args(cfg: MapConfig):
     """The kernel's per-map arguments: the table shapes it checks, then
@@ -43,28 +57,34 @@ def _map_args(cfg: MapConfig):
                     float(v32), float(dec32))
 
 
-def query_nearest(cfg: MapConfig, m: VoxelMap, queries: torch.Tensor,
-                  valid: torch.Tensor) -> QueryResult:
-    """Closest map point among the 27 voxels around each query.
+@torch.library.custom_op("kiss_icp_torch::nn27", mutates_args=(), device_types="cpu")
+def nn27(queries: torch.Tensor, valid: torch.Tensor, vkeys: torch.Tensor,
+         fprints: torch.Tensor, counts: torch.Tensor, points: torch.Tensor,
+         voxel_size: float, probe_length: int
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(neighbours (N,3) f32, distances (N,) f32, found (N,) bool); on the
+    CPU, the plain version."""
+    cfg = _map_config(fprints, points, voxel_size, probe_length)
+    m = VoxelMap(vkeys, fprints, counts, points, *([None] * 3))
+    return tuple(hash_map.query_nearest(cfg, m, queries, valid))
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    count one launch in `query_nearest.launches`), or raise.
-    """
+
+@nn27.register_kernel("cuda")
+def _nn27_cuda(queries, valid, vkeys, fprints, counts, points, voxel_size, probe_length):
+    """Launch the kernel (one count in `query_nearest.launches`); no launch
+    for zero queries."""
     dev = queries.device
-    if dev.type == "cpu":
-        return hash_map.query_nearest(cfg, m, queries, valid)
-    if dev.type != "cuda":
-        raise ValueError(f"queries: expected a CPU or CUDA tensor, got {dev}")
     fn, stream = _entry()
+    cfg = _map_config(fprints, points, voxel_size, probe_length)
     (key_shape, slot_shape, row_shape), margs = _map_args(cfg)
     n = queries.shape[0]
     check = _build.check_tensor
     q_ptr = check(queries, "queries", torch.float32, (n, 3), dev)
     v_ptr = check(valid, "valid", torch.bool, (n,), dev)
-    k_ptr = check(m.vkeys, "vkeys", torch.int32, key_shape, dev)
-    f_ptr = check(m.fprints, "fprints", torch.int32, slot_shape, dev)
-    c_ptr = check(m.counts, "counts", torch.int32, slot_shape, dev)
-    p_ptr = check(m.points, "points", cfg.point_dtype, row_shape, dev)
+    k_ptr = check(vkeys, "vkeys", torch.int32, key_shape, dev)
+    f_ptr = check(fprints, "fprints", torch.int32, slot_shape, dev)
+    c_ptr = check(counts, "counts", torch.int32, slot_shape, dev)
+    p_ptr = check(points, "points", cfg.point_dtype, row_shape, dev)
     # 16 B loads of the probe window where the table's alignment allows them.
     vec_probe = int(cfg.probe_length % 4 == 0 and f_ptr % 16 == 0)
     # Three allocations: on the card's host a view or slice costs about as
@@ -77,7 +97,25 @@ def query_nearest(cfg: MapConfig, m: VoxelMap, queries: torch.Tensor,
                  nn.data_ptr(), dist.data_ptr(), found.data_ptr(), stream(dev.index))
         _build.check_error(err, "nn27 kernel")
         query_nearest.launches += 1
-    return QueryResult(nn, dist, found)
+    return nn, dist, found
+
+
+@nn27.register_fake
+def _nn27_fake(queries, valid, vkeys, fprints, counts, points, voxel_size, probe_length):
+    n = queries.shape[0]
+    return (queries.new_empty((n, 3)), queries.new_empty((n,)),
+            queries.new_empty((n,), dtype=torch.bool))
+
+
+def query_nearest(cfg: MapConfig, m: VoxelMap, queries: torch.Tensor,
+                  valid: torch.Tensor) -> QueryResult:
+    """Closest map point among the 27 voxels around each query, through the
+    operator: the plain version for CPU tensors, the kernel for CUDA tensors
+    (counted in `query_nearest.launches`). Tensors on any other device
+    raise."""
+    _build.check_device(queries, "queries")
+    return QueryResult(*nn27(queries, valid, m.vkeys, m.fprints, m.counts, m.points,
+                             float(cfg.voxel_size), int(cfg.probe_length)))
 
 
 query_nearest.launches = 0

@@ -4,19 +4,24 @@ Port of the core of `kiss_icp_tpu/odometry.py` (reference KissICP.cpp:35-68 /
 kiss_icp.py:43-75): `register_frame(config, state, scan) -> (state, result)`
 deskews, downsamples twice, registers against the local map with the
 adaptive threshold, and updates the map. PyTorch runs eagerly, so the step is
-plain Python over device tensors; the ICP loop and the map's claim rounds
-read one scalar per iteration.
+plain Python over device tensors. Its loops (the ICP iterations, the map's
+claim rounds) and its one branch (the empty map) are `ops/control.py`
+loops and branches over their carry: run live, they read one scalar per
+test; traced by `torch.export` (io/aot.py), they become `torch.while_loop`
+and `torch.cond`, so the whole step exports as one program.
 
-The map is updated IN PLACE (2^19 slots by default): the state passed to
-`register_frame` shares its map tensors with the state it returns and must
-not be used afterwards. A frame's result and the state it returns share the
-pose tensor, so nothing updates a pose in place: `rebase_state` builds a new
-one.
+`engine.donate_state` decides what happens to the caller's state, as in the
+JAX package (`make_step`). True: the map (2^19 slots by default) is updated
+IN PLACE, and the state passed in must not be used afterwards. False: the
+step inserts into a copy of the map (136 MB at 2^19 f32 slots) and leaves
+the caller's state bit-identical. `KissICP` owns its state and always
+donates. A frame's result and the state it returns share the pose tensor,
+so nothing updates a pose in place: `rebase_state` builds a new one.
 
 `make_chunked_step` advances K frames a call (PyTorch has no `lax.scan`: a
 Python loop over the same `register_frame`, state on the device throughout),
 and `rebase_state` rolls the world origin forward so that long drives stay
-inside the map's key envelope.
+inside the map's key envelope. Iteration counts are device int32 tensors.
 
 `KissICP` is the stateful wrapper (numpy in/out), with the rolling origin,
 the chunked API and checkpoints. Entry points run on the GPU unless the
@@ -26,8 +31,9 @@ machine without a card.
 
 from __future__ import annotations
 
+import functools
 import warnings
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,7 +60,7 @@ class FrameResult(NamedTuple):
     source_points: torch.Tensor  # (S, 3) ICP source / keypoints (padded, body frame)
     source_valid: torch.Tensor  # (S,)
     sigma: torch.Tensor  # () adaptive threshold used this frame
-    num_iterations: int  # ICP iterations run
+    num_iterations: torch.Tensor  # () int32 ICP iterations run
     num_correspondences: torch.Tensor  # () correspondences at convergence
     num_dropped_downsample: torch.Tensor  # () voxels lost to frame/source capacity
     num_dropped_map_voxels: torch.Tensor  # () new voxels lost to map probe overflow
@@ -103,8 +109,7 @@ def _sigma_for_frame(config: KISSConfig, state: OdometryState) -> torch.Tensor:
     (reference threshold.py:29-43)."""
     fixed = config.adaptive_threshold.fixed_threshold
     if fixed is not None:
-        return torch.tensor(float(fixed), dtype=torch.float32,
-                            device=state.pose.device)
+        return voxel.f32_scalar(float(fixed), state.pose.device)
     return threshold.compute_threshold(state.threshold)
 
 
@@ -114,18 +119,24 @@ def register_frame(
     points: torch.Tensor,
     timestamps: torch.Tensor,
     valid: torch.Tensor,
+    *,
+    donate: Optional[bool] = None,
 ) -> Tuple[OdometryState, FrameResult]:
     """One odometry step (reference KissICP.cpp:35-68 / kiss_icp.py:43-75).
 
     points (N, 3) f32, timestamps (N,) f32, valid (N,) bool, on the state's
-    device. The map is updated in place (see the module docstring). Each
-    stage runs under a `kiss/<stage>` profiler span (tools/profile_drive.py
-    reads them; without a profiler they cost a few microseconds a frame).
+    device. `donate` (default `engine.donate_state`): update the caller's
+    map in place, or leave the caller's state as it was (see the module
+    docstring). Each stage runs under a `kiss/<stage>` profiler span
+    (tools/profile_drive.py reads them; without a profiler they cost a few
+    microseconds a frame).
     """
     check_supported(config)
     mcfg = map_config(config)
     vsize = float(config.mapping.voxel_size)
     e = config.engine
+    if donate is None:
+        donate = bool(e.donate_state)
     sigma = _sigma_for_frame(config, state)
 
     def deskew_downsample(deskew_delta):
@@ -190,7 +201,7 @@ def register_frame(
         prep, frame_ds, source, align = deskew_register(delta_est, new_pose)
         refine_finite = torch.all(torch.isfinite(align.pose))
         new_pose = se3.orthonormalize(torch.where(refine_finite, align.pose, new_pose))
-        total_iterations += align.num_iterations
+        total_iterations = total_iterations + align.num_iterations
 
     # Downsample drops of the pass that made both output clouds, taken
     # before 5c can rebuild the frame cloud from another deskew.
@@ -219,8 +230,8 @@ def register_frame(
     #    (reference VoxelHashMap::Update, VoxelHashMap.cpp:83-95).
     with record_function("kiss/map_insert"):
         world_points = se3.transform(new_pose, frame_ds.points)
-        new_map, insert_stats = hash_map.insert(mcfg, state.map, world_points,
-                                                frame_ds.valid)
+        m = state.map if donate else copy_map(state.map)
+        new_map, insert_stats = hash_map.insert(mcfg, m, world_points, frame_ds.valid)
     with record_function("kiss/map_trim"):
         new_map = hash_map.trim(mcfg, new_map, new_pose[:3, 3])
 
@@ -248,6 +259,21 @@ def register_frame(
     return new_state, result
 
 
+def copy_map(m: hash_map.VoxelMap) -> hash_map.VoxelMap:
+    """A map whose tables are copies of `m`'s: what a step that does not
+    donate its state inserts into and trims (the counters are replaced, not
+    written, by the step)."""
+    return m._replace(vkeys=m.vkeys.clone(), fprints=m.fprints.clone(),
+                      counts=m.counts.clone(), points=m.points.clone())
+
+
+def make_step(config: KISSConfig) -> Callable[..., Tuple[OdometryState, FrameResult]]:
+    """`register_frame` for a fixed config: `step(state, points, timestamps,
+    valid) -> (state, FrameResult)`, donating the state only when
+    `engine.donate_state` is set (JAX `odometry.make_step`)."""
+    return functools.partial(register_frame, config)
+
+
 def rebase_state(config: KISSConfig, state: OdometryState, shift_vox
                  ) -> Tuple[OdometryState, torch.Tensor]:
     """Roll the world origin forward by `shift_vox` voxels (int (3,)): the
@@ -270,6 +296,13 @@ def rebase_state(config: KISSConfig, state: OdometryState, shift_vox
     return state._replace(pose=pose, map=new_map), dropped
 
 
+def make_rebase(config: KISSConfig):
+    """`rebase_state` for a fixed config (JAX `odometry.make_rebase`). The
+    rebuild writes new tensors and a new pose whatever
+    `engine.donate_state` says, so the caller's state is never written."""
+    return functools.partial(rebase_state, config)
+
+
 class ChunkSummary(NamedTuple):
     """Per-frame scalars of a K-frame chunk, stacked on the device."""
 
@@ -283,20 +316,26 @@ class ChunkSummary(NamedTuple):
     used_fallback: torch.Tensor  # (K,) bool
 
 
-def make_chunked_step(config: KISSConfig):
+def make_chunked_step(config: KISSConfig, donate: Optional[bool] = None):
     """A K-frame advance: `step(state, points (K,N,3), timestamps (K,N),
     valid (K,N)) -> (state, ChunkSummary)`, inputs on the state's device.
 
     The JAX package scans the frames inside one XLA program; PyTorch has no
     `lax.scan`, so this is a Python loop over `register_frame` whose state
-    never leaves the device. Only the per-frame GN loop's one scalar a
-    iteration reaches the host; the summary's scalars are stacked on the
-    device."""
+    never leaves the device. Only the loops' scalar tests reach the host;
+    the summary's scalars are stacked on the device. `donate` (default
+    `engine.donate_state`) as in `register_frame`; a chunk that does not
+    donate copies the caller's map once, and its frames update that copy."""
+    if donate is None:
+        donate = bool(config.engine.donate_state)
 
     def chunk(state, points, timestamps, valid):
+        if not donate:
+            state = state._replace(map=copy_map(state.map))
         results = []
         for i in range(points.shape[0]):
-            state, res = register_frame(config, state, points[i], timestamps[i], valid[i])
+            state, res = register_frame(config, state, points[i], timestamps[i], valid[i],
+                                        donate=True)
             results.append(res)
 
         def stacked(name):
@@ -305,8 +344,7 @@ def make_chunked_step(config: KISSConfig):
         return state, ChunkSummary(
             poses=stacked("pose"),
             sigmas=stacked("sigma"),
-            num_iterations=torch.tensor([r.num_iterations for r in results],
-                                        dtype=torch.int32, device=points.device),
+            num_iterations=stacked("num_iterations"),
             num_correspondences=stacked("num_correspondences"),
             num_dropped_downsample=stacked("num_dropped_downsample"),
             num_dropped_map_voxels=stacked("num_dropped_map_voxels"),
@@ -315,6 +353,19 @@ def make_chunked_step(config: KISSConfig):
         )
 
     return chunk
+
+
+def register_pytree_types() -> None:
+    """Name the state and result types for `torch.export.save`, which
+    writes a program's input and output structure by type name (JAX
+    `io/aot._register_types`). Idempotent."""
+    from torch.utils import _pytree
+
+    for cls in (OdometryState, FrameResult, ChunkSummary, hash_map.VoxelMap,
+                threshold.ThresholdState):
+        if cls not in _pytree.SUPPORTED_NODES:
+            _pytree._register_namedtuple(
+                cls, serialized_type_name=f"kiss_icp_tpu_torch.{cls.__name__}")
 
 
 # Bytes a point takes in a packed chunk: 3 f32 coordinates, 1 f32 stamp and
@@ -449,7 +500,9 @@ class KissICP:
         re-base: drivers call `maybe_rebase` where they read the pose."""
         chunk, _ = self.build_chunk([frame], [timestamps])
         pts, ts, valid = self._to_device(chunk)
-        self.state, res = register_frame(self.config, self.state, pts[0], ts[0], valid[0])
+        # The engine owns its state: it always donates it.
+        self.state, res = register_frame(self.config, self.state, pts[0], ts[0], valid[0],
+                                         donate=True)
         self.last_result = res
         return res
 
@@ -487,7 +540,7 @@ class KissICP:
         return poses
 
     def _make_chunk_step(self):
-        return make_chunked_step(self.config)
+        return make_chunked_step(self.config, donate=True)
 
     def _summary_poses(self, summary: ChunkSummary) -> torch.Tensor:
         """The stacked (K, 4, 4) local poses of a chunk summary."""

@@ -7,7 +7,8 @@ are packed, in slot order, into a dense view:
   * `ckeys / ccounts / cpoints`: the live voxels in `live_capacity` rows;
   * `hfp / hval`: a small open-addressing index (fingerprint -> row), four
     times the live capacity, built by the same deterministic scatter-min
-    claim rounds as `hash_map._claim_slots` (one host read per round).
+    claim rounds as `hash_map._claim_slots` (a `control.while_loop`: one
+    host read per round when run live).
 
 The JAX package queries the view in these modes; its answers are those of
 the sparse query. The port queries the sparse map (the fused NN kernel,
@@ -26,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from kiss_icp_tpu_torch.ops import control
 from kiss_icp_tpu_torch.ops.hash_map import (MapConfig, VoxelMap, _first_true,
                                              _take_rows, _window_fp, fingerprint,
                                              window_row)
@@ -68,16 +70,15 @@ def _hash_rows(coords: torch.Tensor, ccfg: CompactConfig) -> torch.Tensor:
 
 def build_compact(mcfg: MapConfig, ccfg: CompactConfig, m: VoxelMap) -> CompactMap:
     """Pack the live voxels of `m` into the view, in slot order (JAX
-    `compact_map.build_compact`: `jnp.nonzero(size=L, fill_value=0)`)."""
+    `compact_map.build_compact`: `jnp.nonzero(size=L, fill_value=0)`, here
+    `torch.nonzero_static`, so every shape is static)."""
     l_cap, h_cap, k = ccfg.live_capacity, ccfg.hash_capacity, ccfg.probe_length
     dev = m.counts.device
     i32 = dict(dtype=torch.int32, device=dev)
 
     live = m.counts > 0
     n_live_total = torch.sum(live, dtype=torch.int32)
-    live_slots = torch.nonzero(live).squeeze(1)[:l_cap]
-    slot_idx = torch.zeros(l_cap, dtype=torch.int64, device=dev)
-    slot_idx[:live_slots.shape[0]] = live_slots
+    slot_idx = torch.nonzero_static(live, size=l_cap, fill_value=0).squeeze(1)
     n_live = torch.clamp(n_live_total, max=l_cap)
     rows = torch.arange(l_cap, **i32)
     row_valid = rows < n_live
@@ -87,35 +88,42 @@ def build_compact(mcfg: MapConfig, ccfg: CompactConfig, m: VoxelMap) -> CompactM
     cpoints = _take_rows(m.points, slot_idx)
 
     # The index: claim rounds as in hash_map._claim_slots (the lowest row
-    # wins a contested slot). Keys are unique, so a fingerprint already in a
-    # pending row's window belongs to another voxel: placing the row would
-    # make one of the two unfindable (lookups stop at the first match), so
-    # it is refused and counted.
+    # wins a contested slot; winners are scattered into tables one row
+    # longer, where every other row lands in the extra row). Keys are
+    # unique, so a fingerprint already in a pending row's window belongs to
+    # another voxel: placing the row would make one of the two unfindable
+    # (lookups stop at the first match), so it is refused and counted.
     fp = fingerprint(ckeys)
     hrows = _hash_rows(ckeys, ccfg)
     shift = k.bit_length() - 1
-    hfp = torch.zeros(h_cap, **i32)
-    hval = torch.zeros(h_cap, **i32)
-    pending = row_valid.clone()
-    n_shadowed = torch.zeros((), **i32)
-    while bool(torch.any(pending)):
-        wfp = _window_fp(hfp, hrows, k)  # (L, K)
+    dump = torch.full_like(hrows, h_cap)
+
+    def cond(hfp, hval, pending, n_shadowed):
+        return torch.any(pending)
+
+    def body(hfp, hval, pending, n_shadowed):
+        wfp = _window_fp(hfp[:h_cap], hrows, k)  # (L, K)
         shadowed = pending & torch.any(wfp == fp[:, None], dim=-1)
         pending = pending & ~shadowed
-        n_shadowed += torch.sum(shadowed, dtype=torch.int32)
+        n_shadowed = n_shadowed + torch.sum(shadowed, dtype=torch.int32)
         free = wfp == 0
         any_free = torch.any(free, dim=-1)
         tgt_slot = (hrows << shift) + _first_true(free)
         attempt = pending & any_free
-        claims = torch.full((h_cap + 1,), l_cap, **i32)
-        claims.scatter_reduce_(0, torch.where(attempt, tgt_slot, torch.full_like(tgt_slot, h_cap)),
-                               torch.where(attempt, rows, torch.full_like(rows, l_cap)), "amin")
+        claims = torch.full((h_cap + 1,), l_cap, **i32).scatter_reduce(
+            0, torch.where(attempt, tgt_slot, dump),
+            torch.where(attempt, rows, torch.full_like(rows, l_cap)), "amin")
         won = attempt & (claims[torch.clamp(tgt_slot, max=h_cap - 1)] == rows)
-        hfp[tgt_slot[won]] = fp[won]
-        hval[tgt_slot[won]] = rows[won]
+        dst = torch.where(won, tgt_slot, dump)
+        hfp = hfp.index_put((dst,), fp)
+        hval = hval.index_put((dst,), rows)
         # A row whose window is full leaves the rounds unplaced and, as in
         # JAX (whose `dropped_hash` is always 0), uncounted: a fault of the
         # reference, kept for parity (ROADMAP Queue 3).
-        pending = pending & ~won & any_free
+        return hfp, hval, pending & ~won & any_free, n_shadowed
+
+    hfp, hval, _, n_shadowed = control.while_loop(cond, body, (
+        torch.zeros(h_cap + 1, **i32), torch.zeros(h_cap + 1, **i32), row_valid,
+        torch.zeros((), **i32)))
     dropped = (n_live_total - n_live) + n_shadowed
-    return CompactMap(ckeys, ccounts, cpoints, hfp, hval, n_live, dropped)
+    return CompactMap(ckeys, ccounts, cpoints, hfp[:h_cap], hval[:h_cap], n_live, dropped)

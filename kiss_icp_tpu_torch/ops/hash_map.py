@@ -14,13 +14,17 @@ deterministic claim rounds, so a map built by either package has identical
   * queries: `query_nearest` is the plain PyTorch version of the fused NN
              kernel (kernels/nn27.py), which the GN loop uses on CUDA tensors.
   * inserts: deterministic scatter-min claim rounds (lowest batch row wins),
-             run as a host loop with one scalar read per round.
+             a `control.while_loop` that carries `fprints` and `vkeys` (one
+             scalar read per round when run live).
 
 Memory: the map is 2^19 slots by default (126 MB of f32 points), so `insert`
-and `trim` update the VoxelMap's tensors IN PLACE and return a VoxelMap that
-shares them; the map passed in must not be used afterwards (the JAX package
-donates the buffers for the same reason). `rebase`, which runs every few
-kilometres, rebuilds into new tensors.
+writes `counts` and `points` IN PLACE (the claim rounds return new `fprints`
+and `vkeys`, 8 MB) and `trim` clears slots of the map it is given in place;
+the map passed to `insert` must not be used afterwards (the JAX package
+donates the buffers for the same reason). A caller that keeps its map
+inserts into a copy (`odometry.register_frame` with `engine.donate_state`
+false). `rebase`, which runs every few kilometres, rebuilds into new
+tensors.
 
 uint32 hashing is computed in int64 with the low 32 bits masked after every
 multiply (the int64 product may wrap; its low 32 bits stay right), and right
@@ -35,6 +39,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from kiss_icp_tpu_torch.ops import control
 from kiss_icp_tpu_torch.ops import voxel as voxel_ops
 
 # 27 neighbor offsets: the (0,0,0)-centered 3x3x3 cube, own voxel first, in
@@ -279,10 +284,10 @@ def query_nearest(cfg: MapConfig, m: VoxelMap, queries: torch.Tensor,
     """
     pts, d2 = _candidate_slab(cfg, m, queries)
     n = d2.shape[0]
-    d2_flat = d2.reshape(n, -1)
+    d2_flat = d2.flatten(1)  # (N, 27 * P), also for N = 0
     best = torch.argmin(d2_flat, dim=-1)  # first minimum
     best_d2 = torch.gather(d2_flat, 1, best[:, None])[:, 0]
-    nn = pts.reshape(n, -1, 3)[torch.arange(n, device=d2.device), best]
+    nn = pts.flatten(1, 2)[torch.arange(n, device=d2.device), best]
     has = torch.isfinite(best_d2)
     nn = torch.where(has[:, None], nn, torch.zeros_like(nn))
     return QueryResult(nn, torch.sqrt(best_d2), has & valid)
@@ -344,48 +349,63 @@ def query_topc(cfg: MapConfig, m: VoxelMap, queries: torch.Tensor,
 
 
 def _claim_slots(fprints, vkeys, coords, fp, rows, pending, *,
-                 probe_length: int, capacity: int) -> torch.Tensor:
-    """Deterministic free-slot claiming for a batch of new voxels, writing
-    the winners into `fprints` / `vkeys` IN PLACE.
+                 probe_length: int, capacity: int):
+    """Deterministic free-slot claiming for a batch of new voxels (JAX
+    `hash_map._claim_slots`).
 
     Each pending row tries the first free slot of its window; scatter-min
     rounds let the lowest row index win a contested slot. Rows whose window
     is full, or whose fingerprint would shadow a DIFFERENT voxel's equal
     fingerprint in the window, end unassigned (-1) — a counted drop, never a
-    silent hole. One scalar read per round. Returns `assigned` (V,) int64.
+    silent hole. The rounds are a `control.while_loop` (one scalar read per
+    round when run live) that carries the tables: each round writes its
+    winners by a fixed-shape scatter into tables one row longer, where every
+    other row lands in the extra row. The claimed slots of a round are
+    unique, so the outcome is deterministic, slot for slot.
+
+    Returns (`assigned` (V,) int64, new `fprints`, new `vkeys`); the tables
+    passed in are not written.
     """
     k, cap = probe_length, capacity
     shift = k.bit_length() - 1
     v = coords.shape[0]
     dev = coords.device
     row_ids = torch.arange(v, dtype=torch.int64, device=dev)
-    assigned = torch.full((v,), -1, dtype=torch.int64, device=dev)
-    while bool(torch.any(pending)):
-        free = _window_fp(fprints, rows, k) == 0  # (V, K)
+    dump = torch.full_like(row_ids, cap)
+
+    def cond(fpx, vkx, assigned, pending):
+        return torch.any(pending)
+
+    def body(fpx, vkx, assigned, pending):
+        free = _window_fp(fpx[:cap], rows, k) == 0  # (V, K)
         any_free = torch.any(free, dim=-1)
         tgt_slot = (rows << shift) + _first_true(free)
         attempt = pending & any_free
-        claim_idx = torch.where(attempt, tgt_slot, torch.full_like(tgt_slot, cap))
         claims = torch.full((cap + 1,), v, dtype=torch.int64, device=dev)
-        claims.scatter_reduce_(0, claim_idx,
-                               torch.where(attempt, row_ids, torch.full_like(row_ids, v)),
-                               "amin")
+        claims = claims.scatter_reduce(0, torch.where(attempt, tgt_slot, dump),
+                                       torch.where(attempt, row_ids, torch.full_like(row_ids, v)),
+                                       "amin")
         won = attempt & (claims[torch.clamp(tgt_slot, max=cap - 1)] == row_ids)
-        slots = tgt_slot[won]
-        fprints[slots] = fp[won]
-        vkeys[slots] = coords[won]
+        dst = torch.where(won, tgt_slot, dump)
+        fpx = fpx.index_put((dst,), fp)
+        vkx = vkx.index_put((dst,), coords)
         assigned = torch.where(won, tgt_slot, assigned)
         # Within one round a window admits one winner, so shadowing can only
         # form across rounds: drop rows whose window just gained an
         # equal-fingerprint entry of another voxel.
-        wk2 = vkeys.view(-1, k, 3)[rows]
+        wk2 = vkx[:cap].view(-1, k, 3)[rows]
         now_shadowed = torch.any(
-            (_window_fp(fprints, rows, k) == fp[:, None])
+            (_window_fp(fpx[:cap], rows, k) == fp[:, None])
             & ~torch.all(wk2 == coords[:, None, :], dim=-1),
             dim=-1,
         )
-        pending = pending & ~won & any_free & ~now_shadowed
-    return assigned
+        return fpx, vkx, assigned, pending & ~won & any_free & ~now_shadowed
+
+    fpx, vkx, assigned, _ = control.while_loop(cond, body, (
+        torch.cat([fprints, fprints.new_zeros(1)]),
+        torch.cat([vkeys, vkeys.new_zeros((1, 3))]),
+        torch.full((v,), -1, dtype=torch.int64, device=dev), pending))
+    return assigned, fpx[:cap], vkx[:cap]
 
 
 class InsertStats(NamedTuple):
@@ -396,7 +416,8 @@ class InsertStats(NamedTuple):
 
 def insert(cfg: MapConfig, m: VoxelMap, points: torch.Tensor,
            valid: torch.Tensor) -> Tuple[VoxelMap, InsertStats]:
-    """Add one frame of world-frame points to the map, IN PLACE.
+    """Add one frame of world-frame points to the map: `counts` and
+    `points` IN PLACE, new `fprints` and `vkeys` (see the module docstring).
 
     Mirrors VoxelHashMap::AddPoints (VoxelHashMap.cpp:97-119): group the
     frame by voxel, find-or-claim a slot per voxel, then run the sequential
@@ -433,8 +454,8 @@ def insert(cfg: MapConfig, m: VoxelMap, points: torch.Tensor,
 
     # Phase B: claim free slots for new voxels.
     pending0 = gvalid & ~has_existing & ~shadowed
-    assigned = _claim_slots(m.fprints, m.vkeys, coords, fp, rows, pending0,
-                            probe_length=k, capacity=cfg.capacity)
+    assigned, fprints, vkeys = _claim_slots(m.fprints, m.vkeys, coords, fp, rows, pending0,
+                                            probe_length=k, capacity=cfg.capacity)
     dropped = torch.sum(gvalid & ~has_existing & (assigned < 0), dtype=torch.int32)
 
     slot = torch.where(has_existing, (rows << shift) + exist_pos, assigned)
@@ -466,13 +487,18 @@ def insert(cfg: MapConfig, m: VoxelMap, points: torch.Tensor,
 
     # Phase D: write rows back (re-encoded for u16 storage; the u16
     # roundtrip is a fixpoint, so untouched lanes keep their exact bits).
-    slots = slot_safe[has_slot]
-    stored_out = encode_points(cfg, stored[has_slot], coords[has_slot][:, None, :])
+    # One index list of the rows with a slot, so that every write shares
+    # its (data-dependent) length.
+    sel = torch.nonzero(has_slot).squeeze(1)
+    slots = slot_safe[sel]
+    stored_out = encode_points(cfg, stored[sel], coords[sel][:, None, :])
     bits = _BITS[m.points.dtype]
-    m.points.view(bits)[slots] = stored_out.view(bits)
-    m.counts[slots] = cnt[has_slot]
+    m.points.view(bits).index_put_((slots,), stored_out.view(bits))
+    m.counts.index_put_((slots,), cnt[sel])
 
     new_map = m._replace(
+        vkeys=vkeys,
+        fprints=fprints,
         total_points=m.total_points + added,
         num_dropped_voxels=m.num_dropped_voxels + dropped,
         num_oob_points=m.num_oob_points + num_oob,
@@ -516,12 +542,10 @@ def rebase(cfg: MapConfig, m: VoxelMap,
     shift = torch.as_tensor(shift_vox).to(device=dev, dtype=torch.int32)
     live = m.counts > 0
     new_coords = m.vkeys - shift[None, :]
-    fprints = torch.zeros_like(m.fprints)
-    vkeys = torch.zeros_like(m.vkeys)
-    assigned = _claim_slots(fprints, vkeys, new_coords,
-                            fingerprint(new_coords),
-                            window_row(new_coords, cfg.capacity_log2, k), live,
-                            probe_length=k, capacity=cfg.capacity)
+    assigned, fprints, vkeys = _claim_slots(
+        torch.zeros_like(m.fprints), torch.zeros_like(m.vkeys), new_coords,
+        fingerprint(new_coords), window_row(new_coords, cfg.capacity_log2, k), live,
+        probe_length=k, capacity=cfg.capacity)
     dropped = live & (assigned < 0)
     n_dropped_voxels = torch.sum(dropped, dtype=torch.int32)
     n_dropped_points = torch.sum(torch.where(dropped, m.counts, torch.zeros_like(m.counts)),

@@ -1,11 +1,12 @@
 """Robust point-to-point ICP (Gauss-Newton + Geman-McClure).
 
 Port of `kiss_icp_tpu/ops/registration.py` (reference Registration.cpp:
-52-167). The ICP loop is a host loop with one scalar read per iteration
-(the convergence test); each iteration runs an NN query (the fused NN
-kernel, kernels/nn27.py, in most modes; see `align_points_to_map`) and the
-normal-equation kernel (kernels/linsys.py) on CUDA tensors, or their plain
-versions on CPU tensors.
+52-167). The ICP loop is a `control.while_loop` over its carry, as JAX's
+`lax.while_loop`: run live, one scalar read per iteration (the convergence
+test); under `torch.export`, a `torch.while_loop`. Each iteration runs an
+NN query (the fused NN kernel, kernels/nn27.py, in most modes; see
+`align_points_to_map`) and the normal-equation kernel (kernels/linsys.py)
+on CUDA tensors, or their plain versions on CPU tensors.
 
 Recentering for float32, as in the JAX package: the linear system is built
 with lever arms about the current sensor position `c` (source - c), and the
@@ -23,7 +24,7 @@ from typing import Callable, NamedTuple, Tuple
 import torch
 from torch.profiler import record_function
 
-from kiss_icp_tpu_torch.ops import compact_map, hash_map, se3
+from kiss_icp_tpu_torch.ops import compact_map, control, hash_map, se3
 
 
 class LinearSystem(NamedTuple):
@@ -83,7 +84,7 @@ def solve_increment(ls: LinearSystem) -> torch.Tensor:
 
 class AlignResult(NamedTuple):
     pose: torch.Tensor  # (4, 4) new world pose of the scan
-    num_iterations: int  # ICP iterations run
+    num_iterations: torch.Tensor  # () int32 — ICP iterations run
     num_correspondences: torch.Tensor  # () int32 — after the last iteration
     num_dropped_compact: torch.Tensor  # () int32 — live voxels missing from the
     #                                    compact view ("compact*" modes; 0 elsewhere)
@@ -114,28 +115,35 @@ def gauss_newton_loop(
     linsys_fn: Callable,
     max_iterations: int,
     convergence: float,
-) -> Tuple[torch.Tensor, int]:
-    """The ICP loop (reference Registration.cpp:151-164).
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ICP loop (reference Registration.cpp:151-164; JAX
+    `registration.gauss_newton_loop`).
 
     query_fn(src) -> (distances (N,), neighbors (N, 3));
     linsys_fn(src, neighbors, mask, kernel_scale, center) -> LinearSystem.
     Runs until the world-frame increment norm is below `convergence` (the
-    iteration that converges still applies its step) or `max_iterations`.
-    Returns (t_icp (4, 4), iterations) with final pose = t_icp @ guess.
+    iteration that converges still applies its step and is counted) or
+    `max_iterations`. Returns (t_icp (4, 4), iterations () int32) with final
+    pose = t_icp @ guess.
     """
     guess = initial_guess.to(torch.float32)
-    src = se3.transform(guess, points)
+    src0 = se3.transform(guess, points)
     center = guess[:3, 3].contiguous()  # the K1 kernel reads it by pointer
-    t_icp = se3.identity(device=points.device)
-    it = 0
-    while it < max_iterations:
+    dev = points.device
+
+    def cond(src, t_icp, it, done):
+        return (it < max_iterations) & ~done
+
+    def body(src, t_icp, it, done):
         dist, neighbors = query_fn(src)
         corr = torch.isfinite(dist) & valid & (dist < max_distance)
         dx = solve_increment(linsys_fn(src, neighbors, corr, kernel_scale, center))
         src, t_icp, step = _apply_increment(dx, center, src, t_icp)
-        it += 1
-        if bool(step < convergence):
-            break
+        return src, t_icp, it + 1, step < convergence
+
+    _, t_icp, it, _ = control.while_loop(cond, body, (
+        src0, se3.identity(device=dev), torch.zeros((), dtype=torch.int32, device=dev),
+        torch.zeros((), dtype=torch.bool, device=dev)))
     return t_icp, it
 
 
@@ -151,32 +159,40 @@ def gauss_newton_loop_cached(
     max_iterations: int,
     convergence: float,
     linsys_fn: Callable,
-) -> Tuple[torch.Tensor, int, int]:
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The ICP loop with cached data association (nn_mode "cached"; JAX
     `registration.gauss_newton_loop_cached`).
 
     `gather_fn(src) -> (cand (N, C, 3), cand_valid (N, C))` gathers each
     source point's C nearest candidates; the iterations re-select the
-    nearest within them and gather again only once a valid point has moved
-    more than `refresh_dist` since the last gather. One host read per
-    iteration: the convergence test and the refresh test together.
+    nearest within them and gather again (a `control.cond`) only once a
+    valid point has moved more than `refresh_dist` since the last gather.
+    Run live, two scalar reads per iteration: the convergence test and the
+    refresh test.
 
-    Returns (t_icp (4, 4), iterations, re-gathers).
+    Returns (t_icp (4, 4), iterations () int32, re-gathers () int32).
     """
     guess = initial_guess.to(torch.float32)
-    src = se3.transform(guess, points)
+    src0 = se3.transform(guess, points)
     center = guess[:3, 3].contiguous()  # the K1 kernel reads it by pointer
-    t_icp = se3.identity(device=points.device)
-    rows = torch.arange(points.shape[0], device=points.device)
-    cand, cval = gather_fn(src)
-    ref_src = src
-    it = regathers = 0
-    need = False
-    while it < max_iterations:
-        if need:
-            cand, cval = gather_fn(src)
-            ref_src = src
-            regathers += 1
+    dev = points.device
+    rows = torch.arange(points.shape[0], device=dev)
+    cand0, cval0 = gather_fn(src0)
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def regather(src, cand, cval, ref_src, n_regather):
+        cand, cval = gather_fn(src)
+        return cand, cval, control.fresh(src), n_regather + 1
+
+    def keep(src, cand, cval, ref_src, n_regather):
+        return tuple(control.fresh(t) for t in (cand, cval, ref_src, n_regather))
+
+    def cond(src, t_icp, it, done, cand, cval, moved, ref_src, n_regather):
+        return (it < max_iterations) & ~done
+
+    def body(src, t_icp, it, done, cand, cval, moved, ref_src, n_regather):
+        cand, cval, ref_src, n_regather = control.cond(
+            moved > refresh_dist, regather, keep, (src, cand, cval, ref_src, n_regather))
         diff = src[:, None, :] - cand
         sq = diff * diff
         d2 = (sq[..., 0] + sq[..., 1]) + sq[..., 2]  # (N, C)
@@ -186,13 +202,16 @@ def gauss_newton_loop_cached(
         corr = torch.isfinite(dist) & valid & (dist < max_distance)
         dx = solve_increment(linsys_fn(src, cand[rows, best], corr, kernel_scale, center))
         src, t_icp, step = _apply_increment(dx, center, src, t_icp)
-        it += 1
         moved = torch.max(torch.where(valid, torch.linalg.norm(src - ref_src, dim=-1),
                                       torch.zeros_like(dist)))
-        done, need = torch.stack([step < convergence, moved > refresh_dist]).tolist()
-        if done:
-            break
-    return t_icp, it, regathers
+        return (src, t_icp, it + 1, step < convergence, cand, cval, moved, ref_src,
+                n_regather)
+
+    out = control.while_loop(cond, body, (
+        src0, se3.identity(device=dev), torch.zeros((), **i32),
+        torch.zeros((), dtype=torch.bool, device=dev), cand0, cval0,
+        torch.zeros((), dtype=torch.float32, device=dev), src0, torch.zeros((), **i32)))
+    return out[1], out[2], out[8]
 
 
 def align_points_to_map(
@@ -215,7 +234,8 @@ def align_points_to_map(
     """Register one body-frame source scan against the local map.
 
     Mirrors Registration::AlignPointsToMap (Registration.cpp:138-167): an
-    empty map returns the guess with 0 iterations; otherwise iterate NN
+    empty map returns the guess with 0 iterations (a `control.cond`, so no
+    kernel runs on frame 0); otherwise iterate NN
     association + robust GN. The NN query of each `nn_mode`:
 
       * "gather27", "pallas_fused", "compact", "compact_loop": the fused NN
@@ -248,38 +268,43 @@ def align_points_to_map(
     else:
         raise ValueError(f"unknown nn_mode: {nn_mode!r}")
 
-    guess = initial_guess.to(torch.float32)
-    dev = points.device
-    num_dropped_compact = torch.zeros((), dtype=torch.int32, device=dev)
-    if bool(hash_map.is_empty(m)):
-        return AlignResult(guess, 0, torch.zeros((), dtype=torch.int32, device=dev),
-                           num_dropped_compact)
+    def empty(guess):
+        # Nothing to register against: the guess, 0 iterations, no launch.
+        zero = torch.zeros((), dtype=torch.int32, device=guess.device)
+        return control.fresh(guess), zero, zero.clone(), zero.clone()
 
-    if nn_mode in ("compact", "compact_loop"):
-        ccfg = compact_map.CompactConfig(live_capacity_log2=nn_live_capacity_log2,
-                                         hash_capacity_log2=nn_live_capacity_log2 + 2,
-                                         probe_length=nn_probe_length)
-        with record_function("kiss/compact_view"):
-            num_dropped_compact = compact_map.build_compact(cfg, ccfg, m).num_dropped
+    def register(guess):
+        num_dropped_compact = torch.zeros((), dtype=torch.int32, device=guess.device)
+        if nn_mode in ("compact", "compact_loop"):
+            ccfg = compact_map.CompactConfig(live_capacity_log2=nn_live_capacity_log2,
+                                             hash_capacity_log2=nn_live_capacity_log2 + 2,
+                                             probe_length=nn_probe_length)
+            with record_function("kiss/compact_view"):
+                num_dropped_compact = compact_map.build_compact(cfg, ccfg, m).num_dropped
 
-    if nn_mode == "cached":
-        t_icp, iters, _ = gauss_newton_loop_cached(
-            points, valid, guess, max_distance, kernel_scale,
-            gather_fn=lambda src: hash_map.query_topc(cfg, m, src, assoc_cache_size),
-            refresh_dist=float(assoc_refresh_dist), max_iterations=max_iterations,
-            convergence=convergence, linsys_fn=linsys.build_linear_system)
-    else:
-        def query_fn(src):
-            q = nn(src)
-            return q.distances, q.neighbors
+        if nn_mode == "cached":
+            t_icp, iters, _ = gauss_newton_loop_cached(
+                points, valid, guess, max_distance, kernel_scale,
+                gather_fn=lambda src: hash_map.query_topc(cfg, m, src, assoc_cache_size),
+                refresh_dist=float(assoc_refresh_dist), max_iterations=max_iterations,
+                convergence=convergence, linsys_fn=linsys.build_linear_system)
+        else:
+            def query_fn(src):
+                q = nn(src)
+                return q.distances, q.neighbors
 
-        t_icp, iters = gauss_newton_loop(
-            points, valid, guess, max_distance, kernel_scale,
-            query_fn=query_fn, linsys_fn=linsys.build_linear_system,
-            max_iterations=max_iterations, convergence=convergence)
+            t_icp, iters = gauss_newton_loop(
+                points, valid, guess, max_distance, kernel_scale,
+                query_fn=query_fn, linsys_fn=linsys.build_linear_system,
+                max_iterations=max_iterations, convergence=convergence)
 
-    pose = t_icp @ guess
-    # Final correspondence count for diagnostics (one extra association).
-    q = nn(se3.transform(pose, points))
-    n_corr = torch.sum(q.found & (q.distances < max_distance), dtype=torch.int32)
-    return AlignResult(pose, iters, n_corr, num_dropped_compact)
+        pose = t_icp @ guess
+        # Final correspondence count for diagnostics (one extra association).
+        q = nn(se3.transform(pose, points))
+        n_corr = torch.sum(q.found & (q.distances < max_distance), dtype=torch.int32)
+        return pose, iters, n_corr, num_dropped_compact
+
+    # JAX runs the loop on an empty map too and selects the guess after it;
+    # a branch keeps frame 0 free of kernel launches.
+    return AlignResult(*control.cond(hash_map.is_empty(m), empty, register,
+                                     (initial_guess.to(torch.float32),)))

@@ -155,8 +155,11 @@ def se3_log(pose: torch.Tensor) -> torch.Tensor:
 
 def rt_to_matrix(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(R (...,3,3), t (...,3)) -> (..., 4, 4) homogeneous matrix."""
-    bottom = torch.zeros(r.shape[:-2] + (1, 4), dtype=r.dtype, device=r.device)
-    bottom[..., 0, 3] = 1.0
+    # [0, 0, 0, 1] from two fills: a scalar written into a tensor would be
+    # a tensor constant, which an exported loop body cannot hold.
+    like = dict(dtype=r.dtype, device=r.device)
+    bottom = torch.cat([torch.zeros(r.shape[:-2] + (1, 3), **like),
+                        torch.ones(r.shape[:-2] + (1, 1), **like)], dim=-1)
     top = torch.cat([r, t[..., None]], dim=-1)
     return torch.cat([top, bottom], dim=-2)
 

@@ -14,7 +14,10 @@ in f64, in another order than the plain einsum: rtol 2e-5 / atol 1e-3 as
 tests/test_pallas_kernels.py, count exact, and two launches bit-identical
 (no float atomics). K2 (kernels/nn27.py)
 keeps the plain version's operation order with round-to-nearest intrinsics,
-so found, distances and neighbours are bit-equal.
+so found, distances and neighbours are bit-equal. Also on the card: the
+registered operators `kiss_icp_torch::linsys` / `::nn27` under
+`torch.library.opcheck`, and a step exported by io/aot.py against the live
+step, bit for bit.
 """
 
 import numpy as np
@@ -450,3 +453,58 @@ def test_small_drive_modes_card_match_cpu(cuda, engine):
     for (pg, ig, dg), (pc, ic, dc) in zip(runs["cuda"], runs["cpu"]):
         np.testing.assert_allclose(pg, pc, atol=1e-4)
         assert ig == ic and dg == dc
+
+
+@pytest.mark.parametrize("op", ["linsys", "nn27"])
+def test_operators_pass_opcheck_on_card(cuda, op):
+    """The registered operators' CUDA implementations against their schemas
+    and fake implementations (`torch.library.opcheck`), at the main path's
+    8192 queries. An f32 map: opcheck compares and copies the inputs, and
+    PyTorch has few CUDA kernels for uint16 (the u16 map is checked on the
+    CPU, tests/test_torch_ops_export.py)."""
+    if op == "linsys":
+        args = _k1_case(8192, 3, True, cuda)
+    else:
+        cfg, m = _map("f32", cuda)
+        rng = np.random.default_rng(4)
+        q = torch.from_numpy(rng.uniform(-12, 12, (8192, 3)).astype(np.float32)).to(cuda)
+        args = (q, torch.from_numpy(rng.random(8192) > 0.1).to(cuda), m.vkeys, m.fprints,
+                m.counts, m.points, float(cfg.voxel_size), int(cfg.probe_length))
+    torch.library.opcheck(getattr(torch.ops.kiss_icp_torch, op).default, args)
+
+
+def test_exported_step_on_card_matches_live(cuda, tmp_path):
+    """A step exported on the card (io/aot.py), loaded and driven over four
+    frames: poses, iterations and the map bit-identical to the live step,
+    with the live step's K1 and K2 launches."""
+    from kiss_icp_tpu_torch import odometry
+    from kiss_icp_tpu_torch.io import aot
+
+    cfg = KISSConfig()
+    cfg.data.max_range = 50.0
+    cfg.data.min_range = 1.0
+    cfg.mapping.voxel_size = 0.5
+    cfg.engine.max_points_per_frame = 4096
+    cfg.engine.frame_capacity = 4096
+    cfg.engine.source_capacity = 1024
+    cfg.engine.map_capacity_log2 = 15
+    aot.save_step(tmp_path / "step.npz", cfg)
+    step, meta = aot.load_step(tmp_path / "step.npz")
+    assert meta["device_type"] == "cuda"
+    base = np.random.default_rng(2).uniform(-30, 30, (4096, 3)).astype(np.float32)
+    runs = {}
+    for label, fn in (("live", odometry.make_step(cfg)), ("artifact", step)):
+        state = odometry.init_state(cfg)
+        k1, k2 = linsys.build_linear_system.launches, nn27.query_nearest.launches
+        out = []
+        for i in range(4):
+            pts = torch.from_numpy(base + np.float32([0.3, 0.04, 0.0]) * i).to(cuda)
+            state, res = fn(state, pts, torch.zeros(4096, device=cuda),
+                            torch.ones(4096, dtype=torch.bool, device=cuda))
+            out.append((res.pose, int(res.num_iterations)))
+        runs[label] = (out, state, linsys.build_linear_system.launches - k1,
+                       nn27.query_nearest.launches - k2)
+    (live, lstate, l1, l2), (art, astate, a1, a2) = runs["live"], runs["artifact"]
+    assert all(torch.equal(a[0], b[0]) and a[1] == b[1] for a, b in zip(live, art))
+    assert all(torch.equal(a, b) for a, b in zip(lstate.map, astate.map))
+    assert (a1, a2) == (l1, l2) and l1 > 0 and l2 > 0

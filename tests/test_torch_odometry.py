@@ -172,3 +172,101 @@ def test_rebase_trigger_raises_instead_of_drifting_on():
     with pytest.warns(RuntimeWarning, match="re-base dropped"):
         assert icp.maybe_rebase([5.0, 5.0, 5.0]) is True
     assert icp.total_rebase_dropped > 0
+
+
+def _witness():
+    """Frame 0 of `_random_frames`, and a frame 1 made of half of its frame
+    1 and half new points (seed 3): the second frame adds 1044 points to a
+    map of 2048, so a step that wrote its caller's map would see them."""
+    frames = _random_frames()
+    new = np.random.default_rng(3).uniform(-30, 30, (1024, 3)).astype(np.float32)
+    return frames[0], np.concatenate([frames[1][:1024], new])
+
+
+def _leaves(state):
+    return [t.clone() for t in torch.utils._pytree.tree_leaves(state)]
+
+
+def _same_leaves(state, leaves):
+    got = torch.utils._pytree.tree_leaves(state)
+    return len(got) == len(leaves) and all(torch.equal(a, b) for a, b in zip(got, leaves))
+
+
+def _frame(pts):
+    n = pts.shape[0]
+    return torch.from_numpy(pts), torch.zeros(n), torch.ones(n, dtype=torch.bool)
+
+
+def test_step_without_donation_leaves_the_state_as_it_was():
+    """engine.donate_state false: two steps from one state give the same
+    3092 points, iterations and pose, within 1e-4 of JAX `make_step`, and
+    the state stepped from stays bit-identical."""
+    cfg, jcfg = _small(KISSConfig), _small(JaxConfig)
+    f0, f1 = _witness()
+    state, _ = odometry.register_frame(cfg, odometry.init_state(cfg, device="cpu"), *_frame(f0))
+    jstep = jodo.make_step(jcfg)
+    jstate, _ = jstep(jodo.init_state(jcfg), *(jnp.asarray(a.numpy()) for a in _frame(f0)))
+    assert int(state.map.total_points) == int(jstate.map.total_points) == 2048
+    before = _leaves(state)
+    step = odometry.make_step(cfg)
+    runs = [step(state, *_frame(f1)) for _ in range(2)]
+    jruns = [jstep(jstate, *(jnp.asarray(a.numpy()) for a in _frame(f1))) for _ in range(2)]
+    assert _same_leaves(state, before)
+    for (new, res), (jnew, jres) in zip(runs, jruns):
+        assert int(new.map.total_points) == int(jnew.map.total_points) == 3092
+        assert int(res.num_iterations) == int(jres.num_iterations) == 3
+        np.testing.assert_allclose(res.pose.numpy(), np.asarray(jres.pose), atol=1e-4)
+    assert torch.equal(runs[0][1].pose, runs[1][1].pose)
+
+
+def test_step_with_donation_updates_the_map_in_place():
+    """engine.donate_state true: the step writes the caller's map (counts
+    and points in place) and gives the bits of the step that copies."""
+    cfg = _small(KISSConfig)
+    f0, f1 = _witness()
+    state, _ = odometry.register_frame(cfg, odometry.init_state(cfg, device="cpu"), *_frame(f0))
+    copied, res = odometry.make_step(cfg)(state, *_frame(f1))
+    cfg.engine.donate_state = True
+    counts_before = int((state.map.counts > 0).sum())
+    donated, dres = odometry.make_step(cfg)(state, *_frame(f1))
+    assert int((state.map.counts > 0).sum()) > counts_before  # written in place
+    assert donated.map.counts is state.map.counts and donated.map.points is state.map.points
+    assert torch.equal(dres.pose, res.pose)
+    for a, b in zip(donated.map, copied.map):
+        assert torch.equal(a, b)
+
+
+def test_chunked_step_without_donation_copies_once():
+    """A chunk that does not donate leaves its input state bit-identical and
+    gives the donating chunk's bits."""
+    cfg = _small(KISSConfig)
+    f0, f1 = _witness()
+    frames = [_frame(f) for f in (f0, f1, _random_frames()[2])]
+    pts, ts, valid = (torch.stack([f[i] for f in frames]) for i in range(3))
+    state = odometry.init_state(cfg, device="cpu")
+    before = _leaves(state)
+    out, summary = odometry.make_chunked_step(cfg)(state, pts, ts, valid)
+    assert _same_leaves(state, before)
+    again, summary2 = odometry.make_chunked_step(cfg)(state, pts, ts, valid)
+    donated, dsummary = odometry.make_chunked_step(cfg, donate=True)(state, pts, ts, valid)
+    for s in (summary2, dsummary):
+        assert torch.equal(s.poses, summary.poses)
+        assert torch.equal(s.num_iterations, summary.num_iterations)
+    assert int(out.map.total_points) == int(donated.map.total_points) > 2048
+
+
+def test_make_rebase_leaves_the_state_as_it_was():
+    cfg, jcfg = _small(KISSConfig), _small(JaxConfig)
+    f0, _ = _witness()
+    state, _ = odometry.register_frame(cfg, odometry.init_state(cfg, device="cpu"), *_frame(f0))
+    jstate, _ = jodo.register_frame(jcfg, jodo.init_state(jcfg),
+                                    *(jnp.asarray(a.numpy()) for a in _frame(f0)))
+    before = _leaves(state)
+    shift = np.array([3, -2, 1], np.int32)
+    new, dropped = odometry.make_rebase(cfg)(state, shift)
+    jnew, jdropped = jodo.make_rebase(jcfg)(jstate, jnp.asarray(shift))
+    assert _same_leaves(state, before)
+    assert int(dropped) == int(jdropped)
+    np.testing.assert_array_equal(new.pose.numpy(), np.asarray(jnew.pose))
+    np.testing.assert_array_equal(new.map.vkeys.numpy(), np.asarray(jnew.map.vkeys))
+    assert int(new.map.total_points) == int(jnew.map.total_points) == 2048
