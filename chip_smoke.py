@@ -45,6 +45,18 @@ non-zero without printing the final result line):
                chunked step; with donate_state false, one step of the live
                step and of its artifact leaves the state it started from
                bit-identical
+ 13. loaders   the drive's 12 scans written in two loaders' on-disk layouts
+               and run through the CLI on the card, in two subprocesses at
+               once: helipr's Velodyne records (a float32 `t` field the
+               loader normalises), against the drive's poses, and mulran's
+               64 x 1024 column-major Ouster scans (stamps made by the
+               loader), the verify gates; each loader returns what was
+               written, no drops
+ 14. ros       the port's ROS 2 node (ros/odometry_server.main) under a
+               minimal fake of rclpy and the message modules, its device left
+               at the default: the drive's 12 scans published as PointCloud2
+               records with a float32 `t` field, 12 odometry and TF messages,
+               the drive's poses and launches, the shutdown checkpoint loads
 Each mode and option is driven with the kernels' launch counters set to 0
 just before it and read just after. Then one JSON line of per-kernel
 numbers, and the result line
@@ -106,7 +118,7 @@ OPTIONS = {"deskew_refine=1": dict(deskew_refine=1),
 # leaves in memory: the kernels' launch counters (0 when the process
 # starts), each chunk's GN iterations, the frames done at each origin roll,
 # the engine's own time (dispatch_chunk and the poses' read, without the
-# loading of scans in between; and the first chunk's dispatch alone, which
+# loading of scans in between; and each chunk's dispatch alone: the first
 # holds the process's first kernel calls) and the pipeline's totals.
 CLI_DRIVER = r"""
 import json, sys, time
@@ -153,7 +165,7 @@ print("cli-run " + json.dumps({
                            "k2": nn27.query_nearest.launches},
     "iterations": iters, "rolls": seen["rolls"],
     "engine_ms_per_frame": seen["engine_s"] * 1e3 / len(iters),
-    "first_dispatch_s": seen["chunk_s"][0],
+    "chunk_s": seen["chunk_s"],
     "results": p.results.as_dict(), "results_dir": str(p.results_dir),
     "sequence": str(p.dataset_sequence), "chunk": p._effective_chunk,
     "device": str(p.odometry.device), "origin": p.odometry.origin.tolist(),
@@ -188,6 +200,7 @@ def paired_times(kernel_fn, plain_fn, reps_kernel: int, reps_plain: int):
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -553,6 +566,13 @@ def main() -> int:
         cli_launches = phase_cli(Path(tmp), smi)
         phase_resume(Path(tmp))
         mode_launches.update(phase_aot(cfg, scans, drive, Path(tmp), smi))
+        t0 = time.perf_counter()
+        mode_launches.update(phase_loaders(cfg, scans, ds, drive, Path(tmp), smi))
+        t1 = time.perf_counter()
+        mode_launches.update(phase_ros(cfg, scans, drive, Path(tmp), smi))
+        print(f"time: phase loaders {t1 - t0:.1f} s, phase ros {time.perf_counter() - t1:.1f} s, "
+              f"the script {time.perf_counter() - t_start:.1f} s (host clock); on {smi}",
+              flush=True)
     for k, key in zip(kernels, ("k1", "k2")):
         k["launches_cli"] = {run: cli_launches[run][key] for run in ("A", "B")}
         k["launches_modes"] = {name: counts[key] for name, counts in mode_launches.items()}
@@ -806,19 +826,21 @@ def phase_rebase(icp, cfg, scans, ds) -> None:
 def _cli_runs(tmp: Path, runs) -> dict:
     """CLI runs in subprocesses on the card, all started together (the
     synthetic renderer on the host sets their pace, and the host has cores
-    to spare): `runs` is a list of (label, config, frames, extra flags).
-    Returns each run's `cli-run` record; a run that fails fails the phase,
-    and no process outlives the call."""
+    to spare): `runs` is a list of (label, config, frames, extra flags), the
+    flags after the data arguments, which are the synthetic drive's unless
+    a fifth item gives others. Returns each run's `cli-run` record; a run
+    that fails fails the phase, and no process outlives the call."""
     procs = {}
     try:
-        for label, config, frames, extra in runs:
+        for label, config, frames, extra, *data in runs:
+            data = data[0] if data else (str(tmp), "--dataloader", "synthetic", "--sequence", "0")
             cfg_file = tmp / f"{label}.yml"
             cfg_file.write_text(json.dumps(config))  # JSON is YAML
             logs = (open(tmp / f"{label}.out", "w"), open(tmp / f"{label}.err", "w"))
             procs[label] = (subprocess.Popen(
-                [sys.executable, "-c", CLI_DRIVER, str(tmp), "--dataloader", "synthetic",
-                 "--sequence", "0", "--config", str(cfg_file), "--n-scans", str(frames),
-                 *extra], cwd=REPO, stdout=logs[0], stderr=logs[1]), logs)
+                [sys.executable, "-c", CLI_DRIVER, *data, "--config", str(cfg_file),
+                 "--n-scans", str(frames), *extra], cwd=REPO, stdout=logs[0],
+                stderr=logs[1]), logs)
         records = {}
         for label, (proc, logs) in procs.items():
             rc = proc.wait(timeout=900)
@@ -914,7 +936,7 @@ def phase_cli(tmp: Path, smi: str) -> dict:
               f"Average Frequency (no warmup) {r['Average Frequency (no warmup)']:.3f} Hz, "
               f"Average Runtime {r['Average Runtime']:.3f} ms (scan loading included), "
               f"engine {run['engine_ms_per_frame']:.3f} ms/frame (dispatch and poses read "
-              f"only; the first chunk's dispatch {run['first_dispatch_s']:.2f} s); ATE {r['Absolute Trajectory Error (ATE)']:.6f} m; "
+              f"only; the first chunk's dispatch {run['chunk_s'][0]:.2f} s); ATE {r['Absolute Trajectory Error (ATE)']:.6f} m; "
               f"GN iterations {sum(run['iterations'])}; origin rolls at frames "
               f"{run['rolls']}; launches {run['launches']}; on {smi}", flush=True)
     print(f"cli: A against the JAX golden: frames 1-12 within {diff[:12].max():.3e} m "
@@ -1086,6 +1108,352 @@ def phase_aot(cfg, scans, drive: dict, tmp: Path, smi: str) -> dict:
           f"ms donating it (median of {len(copy_ms)} each, host clock with a sync); on {smi}",
           flush=True)
     return out
+
+
+def engine_stamps(stamps, device="cuda") -> np.ndarray:
+    """A scan's stamps as the step normalises them on the card: float32
+    (t - min) / (max - min), by the ops of ops/preprocess.py."""
+    import torch
+
+    t = torch.from_numpy(np.asarray(stamps).astype(np.float32)).to(device)
+    t_min, t_max = torch.min(t), torch.max(t)
+    return ((t - t_min) / (t_max - t_min)).cpu().numpy()
+
+
+def write_helipr(root: Path, scans, gt) -> list:
+    """HeLiPR's Velodyne layout ('=ffffHf': x y z intensity ring t) under
+    root/LiDAR/Velodyne, one file a scan, and its ground truth. `t` is the
+    float32 stamp the step would use, times 1/8 (a 0.125 s sweep): the
+    loader's [0, 1] normalisation gives those stamps back exactly. Returns
+    the written records."""
+    scan_dir, gt_dir = root / "LiDAR" / "Velodyne", root / "LiDAR_GT"
+    scan_dir.mkdir(parents=True)
+    gt_dir.mkdir(parents=True)
+    from scipy.spatial.transform import Rotation
+
+    recs, rows = [], []
+    for i, (pts, stamps) in enumerate(scans):
+        rec = np.zeros(len(pts), dtype=[("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                                        ("intensity", "<f4"), ("ring", "<u2"), ("t", "<f4")])
+        rec["x"], rec["y"], rec["z"] = pts[:, 0], pts[:, 1], pts[:, 2]
+        rec["t"] = engine_stamps(stamps) * np.float32(0.125)
+        stamp = 1_000_000_000 + 100_000_000 * i
+        rec.tofile(scan_dir / f"{stamp}.bin")
+        recs.append(rec)
+        rows.append([stamp, *gt[i][:3, 3], *Rotation.from_matrix(gt[i][:3, :3]).as_quat()])
+    np.savetxt(gt_dir / "global_Velodyne_gt.txt", np.array(rows))
+    return recs
+
+
+def write_mulran(root: Path, scans, gt) -> list:
+    """MulRan's layout under root/Ouster: float32 (65536, 4) scans in
+    64 x 1024 column-major order (each azimuth column's returns, then zero
+    rows for the missing ones, which the range crop drops), and
+    global_pose.csv, conjugated so that the loader's ground truth is `gt`.
+    Returns the written scans."""
+    from kiss_icp_tpu_torch.datasets.mulran import _T_LIDAR_TO_BASE as t_l2b
+
+    (root / "Ouster").mkdir(parents=True)
+    grids, rows = [], []
+    for i, (pts, stamps) in enumerate(scans):
+        col = np.rint(np.asarray(stamps) * 1024).astype(np.int64)
+        order = np.argsort(col, kind="stable")
+        cs = col[order]
+        rank = np.arange(len(cs)) - np.searchsorted(cs, cs)
+        check(rank.max() < 64, "loaders: more than 64 returns in one azimuth column")
+        grid = np.zeros((64 * 1024, 4), np.float32)
+        grid[cs * 64 + rank, :3] = pts[order]
+        stamp = 1_000_000_000 + 100_000_000 * i
+        grid.tofile(root / "Ouster" / f"{stamp}.bin")
+        grids.append(grid)
+        rows.append([stamp, *(np.linalg.inv(t_l2b) @ gt[i] @ t_l2b)[:3].ravel()])
+    np.savetxt(root / "global_pose.csv", np.array(rows), delimiter=",")
+    return grids
+
+
+def phase_loaders(cfg, scans, ds, drive: dict, tmp: Path, smi: str) -> dict:
+    """13. The CLI over the drive's 12 scans written as two loaders' files,
+    both runs at once in subprocesses on the card. Returns each run's
+    launches."""
+    from kiss_icp_tpu_torch.config.schema import config_to_dict
+    from kiss_icp_tpu_torch.datasets import dataset_factory
+
+    gt = ds.gt_poses[:N_FRAMES]
+    t0 = time.perf_counter()
+    written = {"helipr": write_helipr(tmp / "helipr", scans, gt),
+               "mulran": write_mulran(tmp / "mulran" / "KAIST01", scans, gt)}
+    data = {"helipr": (str(tmp / "helipr"), "--dataloader", "helipr", "--sequence", "Velodyne"),
+            "mulran": (str(tmp / "mulran" / "KAIST01"), "--dataloader", "mulran")}
+    write_s = time.perf_counter() - t0
+
+    # The loader returns what was written: points bit-equal as float32, the
+    # stamps helipr normalises (the step's own) and mulran's column stamps.
+    for name, args in data.items():
+        loader = dataset_factory(name, Path(args[0]), sequence=args[-1] if name == "helipr"
+                                 else None)
+        check(len(loader) == N_FRAMES, f"loaders {name}: {len(loader)} scans")
+        for i, rec in enumerate(written[name]):
+            pts, stamps = loader[i]
+            if name == "helipr":
+                xyz = np.stack([rec["x"], rec["y"], rec["z"]], 1)
+                want_t = engine_stamps(scans[i][1]).astype(np.float64)
+            else:
+                xyz = rec[:, :3]
+                want_t = np.floor(np.arange(64 * 1024) / 64) / 1024
+            check(pts.dtype == np.float64 and np.array_equal(pts, xyz.astype(np.float64)),
+                  f"loaders {name}: scan {i} points differ from what was written")
+            check(np.array_equal(stamps, want_t), f"loaders {name}: scan {i} stamps differ")
+        check(np.abs(loader.gt_poses - gt).max() < 1e-9,
+              f"loaders {name}: ground truth {np.abs(loader.gt_poses - gt).max():.3e} "
+              "from what was written")
+
+    base = config_to_dict(cfg)
+    base["engine"]["pipeline_chunk"] = 4
+    specs = []
+    for name in data:
+        config = json.loads(json.dumps(base))
+        config["out_dir"] = str(tmp / f"results_{name}")
+        specs.append((f"loaders-{name}", config, N_FRAMES, (), data[name]))
+    runs = _cli_runs(tmp, specs)
+    out = {}
+    for name in data:
+        run = runs[f"loaders-{name}"]
+        k = out[f"loaders {name}"] = run["launches"]
+        poses = np.load(Path(run["results_dir"]) / f"{run['sequence']}_poses.npy")
+        err = np.linalg.norm(poses[:, :3, 3] - gt[:, :3, 3], axis=1)
+        check(run["device"].startswith("cuda") and poses.shape == (N_FRAMES, 4, 4),
+              f"loaders {name}: {poses.shape} on {run['device']}")
+        check_verify_gates(f"loaders {name}", {"poses": poses, "iters": run["iterations"],
+                                               "drops": sum(run["drops"].values())}, err)
+        check(not any(run["drops"].values()), f"loaders {name}: drops {run['drops']}")
+        check(k["k1"] > 0 and k["k2"] > 0, f"loaders {name}: a kernel was not launched ({k})")
+        diff = float(np.abs(poses - drive["poses"]).max())
+        same = bool(np.array_equal(poses, drive["poses"]))
+        extra = f"from the drive's poses {diff:.3e}"
+        if name == "helipr":
+            check(diff <= 1e-4, f"loaders helipr: {diff:.3e} from the drive's poses")
+            if same:
+                check(run["iterations"] == drive["iters"] and k == drive["launches"],
+                      f"loaders helipr: bit-identical poses but iterations "
+                      f"{run['iterations']} / launches {k} against the drive's "
+                      f"{drive['iters']} / {drive['launches']}")
+            extra = ("bit-identical to the drive's poses, iterations and launches (decoded "
+                     "points and stamps bit-equal to the drive's inputs)" if same else
+                     f"within {diff:.3e} m of the drive's poses (limit 1e-4)")
+        steady = run["chunk_s"][1:]
+        ms = sum(steady) * 1e3 / max(N_FRAMES - run["chunk"], 1)
+        print(f"loaders {name}: `python -m kiss_icp_tpu_torch.tools.cmd "
+              f"{' '.join(data[name][1:])}` over the drive's {N_FRAMES} scans "
+              f"(files written in {write_s:.1f} s, read back bit-equal), chunk {run['chunk']}: "
+              f"max_err {err.max():.4f} m, iters {run['iterations']}, drops {run['drops']}, "
+              f"launches K1 {k['k1']} / K2 {k['k2']}; {extra}; engine {ms:.2f} ms/frame after "
+              f"the first chunk ({run['chunk_s'][0]:.2f} s, the process's first kernel "
+              f"calls); Average Runtime {run['results']['Average Runtime']:.3f} ms; on {smi}",
+              flush=True)
+    return out
+
+
+def fake_ros_modules(overrides: dict, on_spin):
+    """A minimal fake of rclpy, geometry_msgs, nav_msgs, sensor_msgs and
+    tf2_ros (there is no ROS on the card's machine): what
+    ros/odometry_server.py touches. Messages are attribute bags; a Node
+    takes its parameters from `overrides`; rclpy.spin(node) calls
+    `on_spin(node)`."""
+    import types
+
+    class Bag:
+        def __init__(self, **kw):
+            self.__dict__.update(kw)
+
+        def __getattr__(self, name):
+            if name.startswith("__"):
+                raise AttributeError(name)
+            value = Bag()
+            setattr(self, name, value)
+            return value
+
+    class PointField(Bag):
+        FLOAT32 = 7
+
+    class Publisher:
+        def __init__(self):
+            self.msgs = []
+
+        def publish(self, msg):
+            self.msgs.append(msg)
+
+    class Logger:
+        def __init__(self):
+            self.lines = []
+
+        def info(self, m):
+            self.lines.append(m)
+
+        warning = info
+
+    class Node:
+        def __init__(self, name):
+            self.params, self.pubs, self.subs, self.logger = {}, {}, [], Logger()
+
+        def declare_parameter(self, name, default):
+            self.params[name] = overrides.get(name, default)
+
+        def get_parameter(self, name):
+            return Bag(value=self.params[name])
+
+        def create_publisher(self, msg_type, topic, qos):
+            return self.pubs.setdefault(topic, Publisher())
+
+        def create_subscription(self, msg_type, topic, callback, qos):
+            self.subs.append((topic, callback))
+
+        def get_logger(self):
+            return self.logger
+
+        def destroy_node(self):
+            self.destroyed = True
+
+    class Buffer:
+        def lookup_transform(self, target, source, when):
+            raise LookupError(f"no transform {target} <- {source}")
+
+    class Broadcaster:
+        def __init__(self, node):
+            self.sent = []
+
+        def sendTransform(self, tfm):
+            self.sent.append(tfm)
+
+    def module(name, **attrs):
+        m = types.ModuleType(name)
+        m.__dict__.update(attrs)
+        return m
+
+    qos = dict(QoSProfile=Bag, QoSReliabilityPolicy=Bag(RELIABLE=1),
+               QoSDurabilityPolicy=Bag(VOLATILE=1))
+    rclpy = module("rclpy", init=lambda args=None: None, shutdown=lambda: None, spin=on_spin,
+                   time=module("rclpy.time", Time=Bag))
+    return {"rclpy": rclpy, "rclpy.node": module("rclpy.node", Node=Node),
+            "rclpy.qos": module("rclpy.qos", **qos), "rclpy.time": rclpy.time,
+            "geometry_msgs": module("geometry_msgs"),
+            "geometry_msgs.msg": module("geometry_msgs.msg", TransformStamped=Bag),
+            "nav_msgs": module("nav_msgs"), "nav_msgs.msg": module("nav_msgs.msg", Odometry=Bag),
+            "sensor_msgs": module("sensor_msgs"),
+            "sensor_msgs.msg": module("sensor_msgs.msg", PointCloud2=Bag, PointField=PointField),
+            "tf2_ros": module("tf2_ros", TransformBroadcaster=Broadcaster),
+            "tf2_ros.buffer": module("tf2_ros.buffer", Buffer=Buffer),
+            "tf2_ros.transform_listener": module("tf2_ros.transform_listener",
+                                                 TransformListener=lambda buf, node: None)}, Bag
+
+
+def phase_ros(cfg, scans, drive: dict, tmp: Path, smi: str) -> dict:
+    """14. The ROS 2 node on the card: main() spins a node whose device is
+    left at its default; the fake spin publishes the drive's 12 scans as
+    PointCloud2 records (float32 x y z t, t the stamps the step uses) and
+    returns; main() then writes the shutdown checkpoint. Returns the
+    node's launches."""
+    import copy
+
+    from kiss_icp_tpu_torch.config.schema import config_to_dict
+    from kiss_icp_tpu_torch.kernels import linsys, nn27
+    from kiss_icp_tpu_torch.odometry import KissICP
+    from kiss_icp_tpu_torch.ros import core, odometry_server
+    from kiss_icp_tpu_torch.tools.point_cloud2 import read_point_cloud
+
+    ckpt = tmp / "ros_node.npz"
+    seen = {"poses": [], "ms": [], "node": None}
+
+    def spin(node):
+        seen["node"] = node
+        (topic, callback), = node.subs
+        check(topic == "/points", f"ros: subscribed to {topic}")
+        for msg in msgs:
+            t0 = time.perf_counter()
+            callback(msg)
+            seen["ms"].append((time.perf_counter() - t0) * 1e3)
+            seen["poses"].append(node.odometry.last_pose)
+
+    overrides = {"pointcloud_topic": "/points", "min_range": float(cfg.data.min_range),
+                 "save_checkpoint_path": str(ckpt)}
+    fakes, Bag = fake_ros_modules(overrides, spin)
+    PointField = fakes["sensor_msgs.msg"].PointField
+
+    def cloud(pts, stamps, i):
+        msg = Bag()
+        msg.header.frame_id, msg.header.stamp = "lidar", Bag(sec=i, nanosec=0)
+        msg.height, msg.width = 1, len(pts)
+        msg.fields = [PointField(name=n, offset=4 * j, datatype=PointField.FLOAT32, count=1)
+                      for j, n in enumerate("xyzt")]
+        msg.is_bigendian, msg.point_step, msg.is_dense = False, 16, True
+        rec = np.concatenate([pts.astype(np.float32), engine_stamps(stamps)[:, None]], 1)
+        msg.data = rec.tobytes()
+        msg.row_step = len(msg.data)
+        return msg
+
+    msgs = [cloud(p, t, i) for i, (p, t) in enumerate(scans)]
+    # The decoded arrays against the drive's inputs as the step sees them.
+    decoded_equal = all(
+        np.array_equal(read_point_cloud(m)[0].astype(np.float32), p.astype(np.float32))
+        and np.array_equal(read_point_cloud(m)[1].astype(np.float32), engine_stamps(t))
+        for m, (p, t) in zip(msgs, scans))
+    saved = {name: sys.modules.get(name) for name in fakes}
+    orig = core.config_from_params
+    # The drive's engine capacities (the node's parameters set the rest).
+    core.config_from_params = lambda params: dataclasses.replace(
+        orig(params), engine=copy.deepcopy(cfg.engine))
+    sys.modules.update(fakes)
+    try:
+        odometry_server._NODE_CLASS = None
+        linsys.build_linear_system.launches = 0
+        nn27.query_nearest.launches = 0
+        odometry_server.main(args=None)
+        launches = {"k1": linsys.build_linear_system.launches,
+                    "k2": nn27.query_nearest.launches}
+    finally:
+        core.config_from_params = orig
+        odometry_server._NODE_CLASS = None
+        for name, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = mod
+    node = seen["node"]
+    check(node is not None and getattr(node, "destroyed", False),
+          "ros: main() did not spin and destroy the node")
+    check(node.odometry.device.type == "cuda", f"ros: the node runs on {node.odometry.device}")
+    check(config_to_dict(node.odometry.config) == config_to_dict(cfg),
+          "ros: the node's config is not the drive's")
+    odom, sent = node.pubs["kiss/odometry"].msgs, node.tf_broadcaster.sent
+    check(len(odom) == N_FRAMES and len(sent) == N_FRAMES,
+          f"ros: {len(odom)} odometry and {len(sent)} TF messages for {N_FRAMES} scans")
+    poses = np.stack(seen["poses"])
+    published = np.array([[m.pose.pose.position.x, m.pose.pose.position.y,
+                           m.pose.pose.position.z] for m in odom])
+    check(np.array_equal(published, poses[:, :3, 3]), "ros: published positions are not the poses")
+    check(odom[-1].header.frame_id == "odom_lidar" and odom[-1].child_frame_id == "lidar"
+          and sent[-1].child_frame_id == "lidar", "ros: frames of the published messages")
+    diff = float(np.abs(poses - drive["poses"]).max())
+    same = bool(np.array_equal(poses, drive["poses"]))
+    check(diff <= 1e-4, f"ros: {diff:.3e} from the drive's poses")
+    if decoded_equal:
+        check(same and launches == drive["launches"],
+              f"ros: decoded inputs bit-equal to the drive's, but poses {diff:.3e} from it, "
+              f"launches {launches} against {drive['launches']}")
+    check(launches["k1"] > 0 and launches["k2"] > 0, f"ros: a kernel was not launched ({launches})")
+    check(ckpt.is_file(), "ros: main() wrote no checkpoint on shutdown")
+    fresh = KissICP(cfg)
+    fresh.load_checkpoint(ckpt)
+    check(np.array_equal(fresh.last_pose, poses[-1]), "ros: the checkpoint's pose is not the node's")
+    p50 = float(np.median(seen["ms"][1:]))
+    print(f"ros: ros/odometry_server.main() on the card (device left at its default), "
+          f"{N_FRAMES} PointCloud2 records (float32 x y z t, {msgs[0].point_step} B a point): "
+          f"{len(odom)} odometry and {len(sent)} TF messages; decoded points and stamps "
+          f"{'bit-equal' if decoded_equal else 'NOT bit-equal'} to the drive's inputs, poses "
+          f"{'bit-identical to' if same else f'within {diff:.3e} m of'} the drive's; launches "
+          f"K1 {launches['k1']} / K2 {launches['k2']} (drive {drive['launches']}); "
+          f"callback p50 {p50:.2f} ms/message after the first ({seen['ms'][0]:.1f} ms); "
+          f"shutdown checkpoint {ckpt.stat().st_size} B loads, same pose; on {smi}", flush=True)
+    return {"ros": launches}
 
 
 if __name__ == "__main__":

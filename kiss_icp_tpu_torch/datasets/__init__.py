@@ -1,9 +1,11 @@
 """Dataset loaders and the dataloader registry of the port.
 
 The same registry as the JAX package's `datasets/__init__.py`: the same 15
-names, sequence and jump lists and `guess_dataloader`, so the CLI offers the
-same choices. Three loaders are ported (`generic`, `kitti`, `synthetic`);
-building any other raises `NotImplementedError` naming ROADMAP item 11.
+loaders, sequence and jump lists and `guess_dataloader`, so the CLI offers
+the same choices. Every loader is a numpy reader (the optional libraries of
+`rosbag`, `mcap`, `ouster` and `nuscenes` are imported when the loader is
+built, which raises ImportError without them); the engine that consumes
+its scans runs on the GPU unless the caller asks for the CPU.
 
 A loader is any object with:
   * `__len__()` -> number of scans
@@ -19,15 +21,24 @@ import importlib
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
-# Loader name -> (module, class), for the loaders the port has.
+# Loader name -> (module, class): the JAX package's set.
 _LOADERS: Dict[str, str] = {
     "kitti": "kiss_icp_tpu_torch.datasets.kitti:KITTIOdometryDataset",
+    "kitti_raw": "kiss_icp_tpu_torch.datasets.kitti_raw:KITTIRawDataset",
+    "mulran": "kiss_icp_tpu_torch.datasets.mulran:MulranDataset",
+    "ncd": "kiss_icp_tpu_torch.datasets.ncd:NewerCollegeDataset",
+    "nclt": "kiss_icp_tpu_torch.datasets.nclt:NCLTDataset",
+    "nuscenes": "kiss_icp_tpu_torch.datasets.nuscenes:NuScenesDataset",
+    "apollo": "kiss_icp_tpu_torch.datasets.apollo:ApolloDataset",
+    "boreas": "kiss_icp_tpu_torch.datasets.boreas:BoreasDataset",
+    "tum": "kiss_icp_tpu_torch.datasets.tum:TUMDataset",
+    "helipr": "kiss_icp_tpu_torch.datasets.helipr:HeLiPRDataset",
+    "rosbag": "kiss_icp_tpu_torch.datasets.rosbag:RosbagDataset",
+    "mcap": "kiss_icp_tpu_torch.datasets.mcap:McapDataset",
+    "ouster": "kiss_icp_tpu_torch.datasets.ouster:OusterDataset",
     "generic": "kiss_icp_tpu_torch.datasets.generic:GenericDataset",
     "synthetic": "kiss_icp_tpu_torch.datasets.synthetic:SyntheticDataset",
 }
-# The JAX package's other loaders, still to be ported (ROADMAP item 11).
-UNPORTED_DATALOADERS = ["kitti_raw", "mulran", "ncd", "nclt", "nuscenes", "apollo",
-                        "boreas", "tum", "helipr", "rosbag", "mcap", "ouster"]
 
 # Loaders that take a sequence index (reference datasets/__init__.py:40-42).
 SEQUENCE_DATALOADERS = ["kitti", "kitti_raw", "nuscenes", "helipr"]
@@ -41,7 +52,7 @@ SUPPORTED_FILE_EXTENSIONS = {"bin", "pcd", "ply", "xyz", "obj", "ctm", "off", "s
 
 
 def available_dataloaders() -> List[str]:
-    return sorted([*_LOADERS, *UNPORTED_DATALOADERS])
+    return sorted(_LOADERS)
 
 
 def jumpable_dataloaders() -> List[str]:
@@ -58,10 +69,6 @@ def supported_file_extensions() -> List[str]:
 
 def dataset_factory(dataloader: str, data_dir: Path, *args: Any, **kwargs: Any):
     """Instantiate a loader by name (reference datasets/__init__.py:61-83)."""
-    if dataloader in UNPORTED_DATALOADERS:
-        raise NotImplementedError(
-            f"the '{dataloader}' loader is not ported yet (ROADMAP item 11); "
-            f"ported: {sorted(_LOADERS)}")
     if dataloader not in _LOADERS:
         raise ValueError(
             f"Unknown dataloader '{dataloader}'. Supported: {available_dataloaders()}"

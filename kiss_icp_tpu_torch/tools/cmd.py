@@ -79,7 +79,7 @@ def main(argv=None) -> int:
     if args.visualize:
         raise NotImplementedError(
             "--visualize: the interactive visualizer is not ported yet "
-            "(ROADMAP item 17)")
+            "(ROADMAP item 17b)")
 
     dataloader = args.dataloader or guess_dataloader(args.data) or "generic"
 

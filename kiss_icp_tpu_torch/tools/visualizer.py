@@ -1,7 +1,7 @@
 """Visualizers: the no-op stub the pipeline runs headless with.
 
 The JAX package's interactive polyscope viewer (`Kissualizer`) and its
-GUI-free state machine are not ported yet (ROADMAP item 17); the CLI's
+GUI-free state machine are not ported yet (ROADMAP item 17b); the CLI's
 `--visualize` refuses to run until they are.
 """
 

@@ -2,8 +2,9 @@
 io/native.py) against the JAX package's.
 
   * the registry: the same 15 names, sequence, jump and extension lists, the
-    same `guess_dataloader` answers; loaders not ported yet raise
-    NotImplementedError naming ROADMAP item 11;
+    same `guess_dataloader` answers; every name builds the port's own loader,
+    and on an empty directory each raises what the JAX loader raises (the
+    loaders themselves are held to JAX in tests/test_torch_loaders.py);
   * `generic` and `kitti` on a KITTI tree give arrays bit-equal to JAX's
     loaders (scans, ground truth, calibration, frame stamps), and the cloud
     readers agree on PLY and PCD files;
@@ -33,14 +34,27 @@ def test_registry_matches_jax():
     assert datasets.jumpable_dataloaders() == jdatasets.jumpable_dataloaders()
     assert datasets.sequence_dataloaders() == jdatasets.sequence_dataloaders()
     assert datasets.supported_file_extensions() == jdatasets.supported_file_extensions()
-    assert sorted(datasets.UNPORTED_DATALOADERS + ["generic", "kitti", "synthetic"]) == \
-        datasets.available_dataloaders()
+    assert all(datasets._LOADERS[n].startswith("kiss_icp_tpu_torch.datasets.")
+               for n in datasets.available_dataloaders())
+    assert [v.split(".")[-1] for v in datasets._LOADERS.values()] == \
+        [v.split(".")[-1] for v in jdatasets._LOADERS.values()]
 
 
-@pytest.mark.parametrize("name", datasets.UNPORTED_DATALOADERS)
-def test_unported_loader_raises(name, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11"):
+EMPTY_DIR_LOADERS = ["kitti_raw", "mulran", "ncd", "nclt", "nuscenes", "apollo",
+                     "boreas", "tum", "helipr", "rosbag", "mcap", "ouster"]
+
+
+@pytest.mark.parametrize("name", EMPTY_DIR_LOADERS)
+def test_loader_on_empty_dir_raises_as_jax(name, tmp_path):
+    """No data (and, for rosbag, mcap, ouster and nuscenes, no library): the
+    port's loader raises the JAX loader's exception, with its message."""
+    with pytest.raises(Exception) as jax_exc:
+        jdatasets.dataset_factory(name, tmp_path, sequence=0, topic=None, meta=None)
+    with pytest.raises(Exception) as port_exc:
         datasets.dataset_factory(name, tmp_path, sequence=0, topic=None, meta=None)
+    assert type(port_exc.value) is type(jax_exc.value)
+    assert str(port_exc.value) == str(jax_exc.value)
+    assert not isinstance(port_exc.value, NotImplementedError)
 
 
 def test_unknown_loader_raises():

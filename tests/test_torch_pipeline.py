@@ -158,10 +158,11 @@ def test_cli_validation_and_version(tmp_path, capsys):
         cmd.main(["--version"])
     assert exc.value.code == 0
     assert "kiss_icp_tpu_torch" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(NotImplementedError, match="item 17b"):
         cmd.main([str(tmp_path), "--visualize"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        cmd.main([str(tmp_path), "--dataloader", "nclt"])
+    # A family with no data in the directory: both CLIs report it and exit 1.
+    assert cmd.main([str(tmp_path), "--dataloader", "nclt"]) == \
+        jcmd.main([str(tmp_path), "--dataloader", "nclt"]) == 1
     # Same flags as the JAX CLI, plus --device.
     ours = {a.dest for a in cmd._build_parser()._actions}
     theirs = {a.dest for a in jcmd._build_parser()._actions}

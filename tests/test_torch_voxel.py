@@ -106,3 +106,30 @@ def test_preprocess(stamps):
         assert moved > 0.01  # the scan really was deskewed
     else:
         np.testing.assert_array_equal(got.points.numpy()[ok], pts[ok])
+
+
+@pytest.mark.parametrize("case", ["test_voxel.py input", "empty frame", "one point"])
+def test_standalone_voxel_down_sample_equals_jax(case):
+    """kiss_icp_tpu_torch.voxelization against kiss_icp_tpu.voxelization on
+    the input of tests/test_voxel.py's numpy-API test, an empty frame and a
+    single point: the same survivors in the same order, bit for bit."""
+    from kiss_icp_tpu.voxelization import voxel_down_sample as jax_vds
+    from kiss_icp_tpu_torch.voxelization import voxel_down_sample
+
+    if case == "empty frame":
+        frame = np.zeros((0, 3))
+    elif case == "one point":
+        frame = np.array([[0.3, -2.2, 7.9]])
+    else:
+        frame = np.random.default_rng(4).uniform(-10, 10, (777, 4)).astype(np.float32)
+    got, ref = voxel_down_sample(frame, 1.0, device="cpu"), jax_vds(frame, 1.0)
+    assert got.dtype == ref.dtype == np.float32 and got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_standalone_voxel_down_sample_needs_a_gpu_by_default(monkeypatch):
+    from kiss_icp_tpu_torch.voxelization import voxel_down_sample
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        voxel_down_sample(np.ones((4, 3)), 1.0)
