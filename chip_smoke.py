@@ -57,6 +57,21 @@ non-zero without printing the final result line):
                at the default: the drive's 12 scans published as PointCloud2
                records with a float32 `t` field, 12 odometry and TF messages,
                the drive's poses and launches, the shutdown checkpoint loads
+ 15. batch     the sequence axis (parallel/batch.py): the drive's scans as 4
+               rows turned b x 90 deg about z. The batched K1 and K2 at the
+               lockstep path's shapes, bit-equal to the unbatched kernels row
+               by row, against their plain versions, an inactive row's empty
+               answer, their times; BatchedOdometry over the 12 frames: row
+               0 against the drive, each row against its own single drive
+               (iterations equal, poses within 1e-5 m), the verify gates
+               against each row's turned ground truth, and one K1 and one
+               K2 launch per lockstep iteration (plus a final count a
+               frame); the "map" chunked mode, launches summed over rows;
+               ms per lockstep frame, sequence-frames/s, launches and peak
+               memory at B = 1, 4, 8
+ 16. tools     tools/op_breakdown over 6 of the drive's scans on the card (its
+               per-stage table, the kernels as the profiler saw them) and
+               tools/capacity_plan over the drive's 12 scans
 Each mode and option is driven with the kernels' launch counters set to 0
 just before it and read just after. Then one JSON line of per-kernel
 numbers, and the result line
@@ -509,31 +524,8 @@ def main() -> int:
             "slice": host_us(lambda: buf[:36]), "view": host_us(lambda: buf.view(6, 7))}
     print("host: per op, host clock: " + ", ".join(f"{k} {v:.2f} us" for k, v in host.items())
           + f"; on {smi}", flush=True)
-    n2 = q2.shape[0]
-    k1_bytes = n2 * (12 + 12 + 1) + (1 + 3) * 4 + (36 + 6 + 1) * 4
-    k1_flops = {"f32": K1_F32_FLOPS_PER_POINT * int(corr.sum()),
-                "f64": K1_F64_FLOPS_PER_POINT * int(corr.sum())}
-    # Bytes this query needs: queries + mask + outputs, each distinct probe
-    # window's 16 fingerprints, each distinct present slot's key, count and
-    # stored points.
-    k = mcfg.probe_length
-    qvox = voxel.point_to_voxel(q2, mcfg.voxel_size)
-    neigh = qvox[:, None, :] + hash_map.neighbor_shifts(dev)[None]
-    rows = hash_map.window_row(neigh, mcfg.capacity_log2, k)
-    match = hash_map._window_fp(m.fprints, rows, k) == hash_map.fingerprint(neigh)[..., None]
-    slot = (rows << (k.bit_length() - 1)) + hash_map._first_true(match)
-    present = match.any(-1) & torch.all(m.vkeys[slot] == neigh, dim=-1)
-    uslots = torch.unique(slot[present])
-    row_cnt = m.counts[uslots].to(torch.int64)
-    k2_bytes = (n2 * (12 + 1 + 12 + 4 + 1) + int(torch.unique(rows).numel()) * k * 4
-                + int(uslots.numel()) * 16 + int(row_cnt.sum()) * 12)
-    k2_flops = {"f32": K2_FLOPS_PER_CANDIDATE * int(m.counts[slot[present]].sum())}
-
-    def bound(nbytes, flops):
-        tb = nbytes / HBM_BYTES_PER_S * 1e3
-        tf = (flops.get("f32", 0) / F32_FLOPS_PER_S + flops.get("f64", 0) / F64_FLOPS_PER_S) * 1e3
-        return (tb, "bytes") if tb >= tf else (tf, "operations")
-
+    k1_bytes, k1_flops = k1_work(q2.shape[0], int(corr.sum()))
+    k2_bytes, k2_flops = k2_work(mcfg, m, q2)
     kernels = []
     for kname, src, replaces, nl, err_, ms, pms, nb, fl, dms in (
             ("linsys (K1)", "kiss_icp_tpu_torch/csrc/linsys.cu",
@@ -570,17 +562,61 @@ def main() -> int:
         mode_launches.update(phase_loaders(cfg, scans, ds, drive, Path(tmp), smi))
         t1 = time.perf_counter()
         mode_launches.update(phase_ros(cfg, scans, drive, Path(tmp), smi))
-        print(f"time: phase loaders {t1 - t0:.1f} s, phase ros {time.perf_counter() - t1:.1f} s, "
-              f"the script {time.perf_counter() - t_start:.1f} s (host clock); on {smi}",
-              flush=True)
+        t2 = time.perf_counter()
+        batch_launches, batch_kernels = phase_batch(cfg, scans, ds, drive, smi)
+        mode_launches.update(batch_launches)
+        t3 = time.perf_counter()
+        phase_tools(cfg, scans, ds, smi)
+        print(f"time: phase loaders {t1 - t0:.1f} s, phase ros {t2 - t1:.1f} s, phase batch "
+              f"{t3 - t2:.1f} s, phase tools {time.perf_counter() - t3:.1f} s, the script "
+              f"{time.perf_counter() - t_start:.1f} s (host clock); on {smi}", flush=True)
     for k, key in zip(kernels, ("k1", "k2")):
         k["launches_cli"] = {run: cli_launches[run][key] for run in ("A", "B")}
         k["launches_modes"] = {name: counts[key] for name, counts in mode_launches.items()}
+    kernels.extend(batch_kernels)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def k1_work(n: int, n_corr: int):
+    """(bytes, operations by type) K1 needs for one system of n points with
+    n_corr correspondences: each input read once, each output written once."""
+    return (n * (12 + 12 + 1) + (1 + 3) * 4 + (36 + 6 + 1) * 4,
+            {"f32": K1_F32_FLOPS_PER_POINT * n_corr, "f64": K1_F64_FLOPS_PER_POINT * n_corr})
+
+
+def k2_work(mcfg, m, q):
+    """(bytes, operations) K2 needs for queries q on map m: queries + mask +
+    outputs, each distinct probe window's fingerprints, each distinct
+    present slot's key and count, and its stored points; 8 flops a
+    candidate point."""
+    import torch
+
+    from kiss_icp_tpu_torch.ops import hash_map, voxel
+
+    k = mcfg.probe_length
+    qvox = voxel.point_to_voxel(q, mcfg.voxel_size)
+    neigh = qvox[:, None, :] + hash_map.neighbor_shifts(q.device)[None]
+    rows = hash_map.window_row(neigh, mcfg.capacity_log2, k)
+    match = hash_map._window_fp(m.fprints, rows, k) == hash_map.fingerprint(neigh)[..., None]
+    slot = (rows << (k.bit_length() - 1)) + hash_map._first_true(match)
+    present = match.any(-1) & torch.all(m.vkeys[slot] == neigh, dim=-1)
+    uslots = torch.unique(slot[present])
+    row_cnt = m.counts[uslots].to(torch.int64)
+    nbytes = (q.shape[0] * (12 + 1 + 12 + 4 + 1) + int(torch.unique(rows).numel()) * k * 4
+              + int(uslots.numel()) * 16 + int(row_cnt.sum()) * 12)
+    return nbytes, {"f32": K2_FLOPS_PER_CANDIDATE * int(m.counts[slot[present]].sum())}
+
+
+def bound(nbytes, flops):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the HBM
+    rate and the operations over the peak rates of their types."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = (flops.get("f32", 0) / F32_FLOPS_PER_S + flops.get("f64", 0) / F64_FLOPS_PER_S) * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
 def drive_engine(icp, scans) -> dict:
@@ -1251,6 +1287,307 @@ def phase_loaders(cfg, scans, ds, drive: dict, tmp: Path, smi: str) -> dict:
               f"calls); Average Runtime {run['results']['Average Runtime']:.3f} ms; on {smi}",
               flush=True)
     return out
+
+
+# The batch phase: B = 4 sequences checked, and B = 1, 4, 8 timed.
+BATCH_ROWS = 4
+BATCH_TIMED = (1, 4, 8)
+# Row b against its single-sequence drive, and row 0 against the drive.
+BATCH_ROW_TOL = 1e-5
+# z-axis quarter turn: (x, y) -> (-y, x), exact in f32 and f64.
+QUARTER = np.array([[0.0, -1.0, 0.0, 0.0], [1.0, 0.0, 0.0, 0.0],
+                    [0.0, 0.0, 1.0, 0.0], [0.0, 0.0, 0.0, 1.0]])
+
+
+def rotated(scans, gt, b: int):
+    """The drive turned b quarter turns about z: each scan's points rotated
+    (stamps unchanged) and the ground truth R P R^T."""
+    r = np.linalg.matrix_power(QUARTER, b)
+    out = []
+    for pts, stamps in scans:
+        p = np.array(pts, copy=True)
+        for _ in range(b % 4):
+            p = np.stack([-p[:, 1], p[:, 0], p[:, 2]], axis=1)
+        out.append((p, stamps))
+    return out, np.stack([r @ g @ r.T for g in gt])
+
+
+def padded_rows(row_scans, cap: int):
+    """(K, B, cap, ...) padded arrays of B rows of K scans each, as
+    BatchedOdometry pads one frame (stride subsample above cap)."""
+    from kiss_icp_tpu_torch.odometry import subsample_to_capacity
+
+    k, b = len(row_scans[0]), len(row_scans)
+    pts = np.zeros((k, b, cap, 3), np.float32)
+    ts = np.zeros((k, b, cap), np.float32)
+    valid = np.zeros((k, b, cap), bool)
+    for j, scans in enumerate(row_scans):
+        for i, (p, t) in enumerate(scans):
+            p, t, _ = subsample_to_capacity(p, t, cap)
+            pts[i, j, :len(p)] = p[:, :3]
+            ts[i, j, :len(p)] = t
+            valid[i, j, :len(p)] = True
+    return pts, ts, valid
+
+
+def lockstep_drive(cfg, row_scans) -> dict:
+    """BatchedOdometry over B rows of scans, frame by frame, with the
+    kernels' launch counters set to 0 just before and read just after:
+    poses (K,B,4,4) f64, iterations (K,B), drops per row, host ms per
+    frame (each ends in the poses' read), launches, the peak device memory
+    (torch.cuda.max_memory_allocated) and what was allocated before."""
+    import torch
+
+    from kiss_icp_tpu_torch.kernels import linsys, nn27
+    from kiss_icp_tpu_torch.parallel.batch import BatchedOdometry
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bo = BatchedOdometry(cfg, len(row_scans))
+    linsys.build_linear_system.launches = 0
+    nn27.query_nearest.launches = 0
+    poses, iters, ms = [], [], []
+    drops = np.zeros(len(row_scans), np.int64)
+    for frame in zip(*row_scans):
+        t0 = time.perf_counter()
+        pose = bo.register_frames([f for f, _ in frame], [t for _, t in frame])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        res = bo.last_result
+        poses.append(pose.astype(np.float64))
+        iters.append(res.num_iterations.cpu().numpy())
+        drops += (res.num_dropped_downsample + res.num_dropped_map_voxels).cpu().numpy()
+    launches = {"k1": linsys.build_linear_system.launches, "k2": nn27.query_nearest.launches}
+    return {"poses": np.stack(poses), "iters": np.stack(iters), "drops": drops,
+            "input_drops": bo.total_input_dropped, "ms": ms, "p50": float(np.median(ms[1:])),
+            "launches": launches, "max_allocated": torch.cuda.max_memory_allocated(),
+            "base_bytes": base, "engine": bo}
+
+
+def phase_batch(cfg, scans, ds, drive: dict, smi: str):
+    """15. The sequence axis (parallel/batch.py) on the card: the drive's
+    scans as B = 4 rows turned b quarter turns about z. The batched kernels
+    at the lockstep path's shapes against the unbatched kernels row by row
+    (bit for bit) and their plain versions; BatchedOdometry over the 12
+    frames against the drive and each row's own single-sequence drive, the
+    verify gates against each row's turned ground truth, one K1 and one K2
+    launch per lockstep iteration; the "map" chunked mode's launches summed
+    over rows; ms per lockstep frame and peak memory at B = 1, 4, 8.
+    Returns (launch columns, per-kernel entries for the kernels line)."""
+    import torch
+
+    from kiss_icp_tpu_torch.kernels import linsys, nn27
+    from kiss_icp_tpu_torch.odometry import KissICP, map_config
+    from kiss_icp_tpu_torch.ops import hash_map, registration
+    from kiss_icp_tpu_torch.parallel.batch import init_batched_state, make_batched_chunked_step
+
+    gt = ds.gt_poses[:N_FRAMES]
+    rows = [rotated(scans, gt, b) for b in range(BATCH_ROWS)]
+    row_scans = [r[0] for r in rows]
+    # Each row's own single-sequence drive (row 0's is the drive phase's).
+    singles = [drive] + [drive_engine(KissICP(cfg), r) for r in row_scans[1:]]
+
+    run = lockstep_drive(cfg, row_scans)
+    out = {"batch B=4 lockstep": run["launches"]}
+    poses, iters = run["poses"], run["iters"]
+    report = []
+    for b, single in enumerate(singles):
+        err = np.linalg.norm(poses[:, b, :3, 3] - rows[b][1][:, :3, 3], axis=1)
+        check_verify_gates(f"batch row {b}", {"poses": poses[:, b], "iters": iters[:, b],
+                                              "drops": int(run["drops"][b])}, err)
+        diff = float(np.abs(poses[:, b] - single["poses"]).max())
+        same = bool(np.array_equal(poses[:, b], single["poses"]))
+        row_iters = [int(x) for x in iters[:, b]]
+        check(row_iters == single["iters"],
+              f"batch row {b}: iterations {row_iters}, its single drive {single['iters']}")
+        check(diff <= BATCH_ROW_TOL, f"batch row {b}: {diff:.3e} m from its single drive")
+        report.append(f"row {b} ({90 * b} deg): max_err {err.max():.4f} m, "
+                      + ("bit-identical to" if same else f"{diff:.3e} from")
+                      + (" the drive" if b == 0 else " its single drive"))
+    check(run["input_drops"] == 0, f"batch: {run['input_drops']} input points dropped")
+    lockstep = int(iters.max(axis=1).sum())
+    finals = N_FRAMES - 1  # a final count in every frame after the first
+    want = {"k1": lockstep, "k2": lockstep + finals}
+    check(run["launches"] == want,
+          f"batch lockstep: launches {run['launches']}, one per lockstep iteration is {want}")
+    summed = int(iters.sum())
+
+    # "map": each row's 12 frames through its own chunked step.
+    pts, ts, valid = padded_rows(row_scans, int(cfg.engine.max_points_per_frame))
+    chunk = make_batched_chunked_step(cfg, seq_mode="map")
+    state = init_batched_state(cfg, BATCH_ROWS)
+    linsys.build_linear_system.launches = 0
+    nn27.query_nearest.launches = 0
+    t0 = time.perf_counter()
+    state, map_poses = chunk(state, pts, ts, valid)
+    map_poses = map_poses.double().cpu().numpy()
+    map_s = time.perf_counter() - t0
+    k = out["batch B=4 map"] = {"k1": linsys.build_linear_system.launches,
+                                "k2": nn27.query_nearest.launches}
+    single_sum = sum(sum(sg["iters"]) for sg in singles)
+    check(k == {"k1": single_sum, "k2": single_sum + BATCH_ROWS * finals},
+          f"batch map: launches {k}, the rows' sum is {single_sum} / "
+          f"{single_sum + BATCH_ROWS * finals}")
+    map_diff = max(float(np.abs(map_poses[:, b] - singles[b]["poses"]).max())
+                   for b in range(BATCH_ROWS))
+    check(map_diff <= BATCH_ROW_TOL, f"batch map: {map_diff:.3e} m from the single drives")
+    del state, chunk
+
+    # The batched kernels at the lockstep path's shapes: each row's final map,
+    # queried by its last ICP source at its final pose.
+    bo = run["engine"]
+    mcfg = map_config(cfg)
+    m, res = bo.state.map, bo.last_result
+    q = registration.transform_rows(bo.state.pose, res.source_points).contiguous()
+    v = res.source_valid
+    active = torch.ones(BATCH_ROWS, dtype=torch.bool, device=q.device)
+    row_maps = [hash_map.VoxelMap(*(t[b] for t in m)) for b in range(BATCH_ROWS)]
+    got = nn27.query_nearest_batched(mcfg, m, q, v, active)
+    plain = nn27.plain_nn27_batched(q, v, active, *m[:4], float(mcfg.voxel_size),
+                                    int(mcfg.probe_length))
+    for b in range(BATCH_ROWS):
+        one = nn27.query_nearest(mcfg, row_maps[b], q[b], v[b])
+        for x, y, z in zip(got, one, plain):
+            check(torch.equal(x[b].view(torch.int8), y.view(torch.int8))
+                  and torch.equal(x[b].view(torch.int8), z[b].view(torch.int8)),
+                  f"batch k2 row {b}: the batched kernel differs from the unbatched "
+                  "kernel or the plain version")
+    sigma = res.sigma
+    corr = got.found & (got.distances < 3.0 * sigma[:, None])
+    center = bo.state.pose[:, :3, 3].contiguous()
+    k1_args = (q, got.neighbors, corr, sigma, center, active)
+    sys_ = linsys.build_linear_systems(*k1_args)
+    plain1 = linsys.plain_linsys_batched(*k1_args)
+    k1_err = 0.0
+    for b in range(BATCH_ROWS):
+        one = linsys.build_linear_system(q[b], got.neighbors[b], corr[b], sigma[b], center[b])
+        check(torch.equal(sys_.jtj[b], one.jtj) and torch.equal(sys_.jtr[b], one.jtr)
+              and int(sys_.num_correspondences[b]) == int(one.num_correspondences),
+              f"batch k1 row {b}: the batched kernel differs from the unbatched kernel")
+        for a, p_ in ((sys_.jtj[b], plain1[0][b]), (sys_.jtr[b], plain1[1][b])):
+            check(torch.allclose(a, p_, rtol=2e-5, atol=1e-3),
+                  f"batch k1 row {b}: kernel disagrees with the plain version")
+            k1_err = max(k1_err, float((a - p_).abs().max()))
+    # An inactive row: no work, the empty answer.
+    some = torch.tensor([True, False, True, False], device=q.device)
+    off = nn27.query_nearest_batched(mcfg, m, q, v, some)
+    off1 = linsys.build_linear_systems(q, got.neighbors, corr, sigma, center, some)
+    check(not bool(off.found[1].any()) and bool(torch.isinf(off.distances[1]).all())
+          and torch.equal(off.neighbors[0], got.neighbors[0])
+          and not bool(off1.jtj[3].any()) and torch.equal(off1.jtj[2], sys_.jtj[2]),
+          "batch: an inactive row did not give the empty answer")
+
+    # The plain versions read the flags on the host: a CUDA graph captures
+    # no host read.
+    on_host = active.cpu()
+    k1_ms, k1_plain_ms = paired_times(
+        lambda: linsys.build_linear_systems(*k1_args),
+        lambda: linsys.plain_linsys_batched(*k1_args[:5], on_host), 200, 20)
+    k2_args = (q, v, on_host, *m[:4], float(mcfg.voxel_size), int(mcfg.probe_length))
+    k2_ms, k2_plain_ms = paired_times(lambda: nn27.query_nearest_batched(mcfg, m, q, v, active),
+                                      lambda: nn27.plain_nn27_batched(*k2_args), 100, 5)
+    k1_b = [k1_work(q.shape[1], int(corr[b].sum())) for b in range(BATCH_ROWS)]
+    k2_b = [k2_work(mcfg, row_maps[b], q[b]) for b in range(BATCH_ROWS)]
+
+    def total(works):
+        flops = {}
+        for _, f in works:
+            for key, val in f.items():
+                flops[key] = flops.get(key, 0) + val
+        return sum(w[0] for w in works) + BATCH_ROWS, flops  # + the active flags
+
+    entries = []
+    for kname, src, replaces, nl, err_, ms, pms, (nb, fl) in (
+            (f"linsys (K1), batched B={BATCH_ROWS}", "kiss_icp_tpu_torch/csrc/linsys.cu",
+             "kiss_icp_tpu/ops/pallas_kernels.py:31", run["launches"]["k1"], k1_err, k1_ms,
+             k1_plain_ms, total(k1_b)),
+            (f"nn27 (K2), batched B={BATCH_ROWS}", "kiss_icp_tpu_torch/csrc/nn27.cu",
+             "kiss_icp_tpu/ops/pallas_nn.py:60", run["launches"]["k2"], 0.0, k2_ms,
+             k2_plain_ms, total(k2_b))):
+        b_ms, b_by = bound(nb, fl)
+        entries.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": nl, "max_abs_err": err_, "ms": ms[0], "plain_ms": pms[0],
+                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                        "eager_ms": ms[1], "plain_eager_ms": pms[1], "bytes": nb, "flops": fl})
+        print(f"batch times: {kname}: {ms[0] * 1e3:.2f} us/call on the device, "
+              f"{ms[1] * 1e3:.2f} us issued eagerly (plain {pms[0] * 1e3:.2f} / "
+              f"{pms[1] * 1e3:.2f} us); bound {b_ms * 1e3:.4f} us by {b_by} ({nb} B, {fl} "
+              f"flop by type); on {smi}", flush=True)
+    del bo, run["engine"], m, res, got, sys_, off, off1
+
+    print(f"batch B={BATCH_ROWS}: BatchedOdometry over the drive's {N_FRAMES} scans turned "
+          f"b x 90 deg about z; " + "; ".join(report) + f"; iterations equal to each row's "
+          f"single drive; launches K1 {want['k1']} / K2 {want['k2']} (one per lockstep "
+          f"iteration: the rows' sum would be {summed}); p50 {run['p50']:.2f} ms/frame; "
+          f"\"map\" mode launches {k} (sum over rows), within {map_diff:.3e} m of the single "
+          f"drives, {map_s:.1f} s for the chunk; the batched kernels bit-equal to the "
+          f"unbatched ones row by row and to the plain versions (K2; K1 within rtol 2e-5, "
+          f"max |diff| {k1_err:.3e}), an inactive row gives the empty answer; on {smi}",
+          flush=True)
+
+    # Timed: ms per lockstep frame, sequence-frames/s, launches, peak memory.
+    timed = []
+    for nb_ in BATCH_TIMED:
+        t = lockstep_drive(cfg, [row_scans[b % BATCH_ROWS] for b in range(nb_)])
+        del t["engine"]
+        lockstep_b = int(t["iters"].max(axis=1).sum())
+        check(t["launches"] == {"k1": lockstep_b, "k2": lockstep_b + finals},
+              f"batch B={nb_}: launches {t['launches']}")
+        timed.append(f"B={nb_}: p50 {t['p50']:.2f} ms/frame, {nb_ * 1e3 / t['p50']:.2f} "
+                     f"sequence-frames/s, launches K1 {t['launches']['k1']} / K2 "
+                     f"{t['launches']['k2']}, max_memory_allocated "
+                     f"{t['max_allocated'] / 2**30:.3f} GiB ("
+                     f"{(t['max_allocated'] - t['base_bytes']) / 2**30:.3f} above the "
+                     f"{t['base_bytes'] / 2**30:.3f} allocated before)")
+        out[f"batch B={nb_} timed"] = t["launches"]
+    print("batch timed (host clock, frames 2-12; each frame ends in the poses' read): "
+          + "; ".join(timed) + f"; on {smi}", flush=True)
+    return out, entries
+
+
+def phase_tools(cfg, scans, ds, smi: str) -> None:
+    """16. The host tools on the card: tools/op_breakdown over the drive's
+    first 6 scans (the last 3 profiled), its per-stage table and the two
+    kernels as the profiler saw them; tools/capacity_plan over the drive's
+    12 scans and ground truth, beside the drive's configured capacities."""
+    from kiss_icp_tpu_torch.tools import capacity_plan, op_breakdown
+
+    res = op_breakdown.run_breakdown(cfg, scans[:6], profile=3, config="verify drive")
+    calls = res["operator_calls_per_frame"]
+    check(calls["nn27"] == calls["linsys"] + 1 and calls["linsys"] == res["mean_gn_iters_steady"],
+          f"tools op_breakdown: operator calls {calls} for {res['mean_gn_iters_steady']} "
+          "iterations a frame")
+    seen = {k["name"]: k for k in res["kernels"] or []}
+    for kname in ("linsys_kernel", "nn27_kernel"):
+        check(any(kname in n and k["calls_per_frame"] > 0 for n, k in seen.items()),
+              f"tools op_breakdown: the profiler saw no {kname} ({sorted(seen)})")
+    print(f"tools op_breakdown: 6 frames of the drive, the last 3 under torch.profiler; "
+          f"frame {res['frame_fused_ms']:.3f} ms (profiled), idle share {res['idle_share']}, "
+          f"{res['mean_gn_iters_steady']} GN iterations a frame; on {smi}", flush=True)
+    for line in op_breakdown.render_table(res).splitlines():
+        print(f"tools op_breakdown {line}", flush=True)
+    print("tools op_breakdown json " + json.dumps(res), flush=True)
+
+    v, e = float(cfg.mapping.voxel_size), cfg.engine
+    frames = [s[0] for s in scans]
+    stats = capacity_plan.measure_frames(frames, v, float(cfg.data.min_range),
+                                         float(cfg.data.max_range))
+    map_voxels = capacity_plan.estimate_map_voxels(
+        frames, list(ds.gt_poses[:len(frames)]), v, float(cfg.data.min_range),
+        float(cfg.data.max_range))
+    plan = capacity_plan.plan(stats, map_voxels=map_voxels,
+                              max_points_per_voxel=int(cfg.mapping.max_points_per_voxel),
+                              probe_length=int(e.probe_length), map_storage=str(e.map_storage))
+    for name, need in (("max_points_per_frame", plan.stats["raw_max"]),
+                       ("frame_capacity", plan.stats["frame_ds_max"]),
+                       ("source_capacity", plan.stats["source_ds_max"])):
+        cap = getattr(plan, name)
+        check(cap >= need and cap & (cap - 1) == 0, f"tools capacity_plan: {name} {cap} "
+              f"for a measured {need}")
+    configured = {name: getattr(e, name) for name in ("max_points_per_frame", "frame_capacity",
+                                                       "source_capacity", "map_capacity_log2")}
+    print(f"tools capacity_plan: the drive's {len(frames)} scans with ground truth -> "
+          f"{json.dumps(plan.as_dict())}; the drive runs with {configured}", flush=True)
 
 
 def fake_ros_modules(overrides: dict, on_spin):

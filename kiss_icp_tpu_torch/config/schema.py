@@ -7,7 +7,7 @@ fixed-shape padded buffers, so point budgets, map capacity and probe length
 stay first-class configuration.
 
 Every key of the JAX package runs on the port except `engine.map_shards > 1`
-(the map-sharded engine, ROADMAP item 16), which `check_supported` refuses.
+(the map-sharded engine, ROADMAP item 16b), which `check_supported` refuses.
 """
 
 from __future__ import annotations
@@ -139,7 +139,7 @@ def check_supported(cfg: KISSConfig) -> None:
     the port does not have yet, naming the ROADMAP item that brings it."""
     if int(cfg.engine.map_shards) > 1:
         raise NotImplementedError(
-            "engine.map_shards > 1 is not ported yet (ROADMAP item 16)")
+            "engine.map_shards > 1 is not ported yet (ROADMAP item 16b)")
 
 
 def _update_dataclass(obj: Any, values: Dict[str, Any], path: str = "") -> None:

@@ -9,6 +9,10 @@ order its checkpoints store as leaf_0 ... leaf_11):
     pose, delta, model_sse, sse_comp, num_samples,
     vkeys, fprints, counts, points, total_points, num_dropped_voxels,
     num_oob_points
+
+A batched state (parallel/batch.py: every leaf stacked on a leading B, as
+the JAX package's `init_batched_state`) crosses the same way, each array
+with its leading B.
 """
 
 from __future__ import annotations
@@ -54,7 +58,8 @@ def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 
 def state_to_numpy(state: OdometryState) -> List[np.ndarray]:
-    """The state as 12 numpy arrays, in the JAX leaf order."""
+    """The state as 12 numpy arrays, in the JAX leaf order (a batched
+    state's with their leading B)."""
     th, m = state.threshold, state.map
     tensors = [state.pose, state.delta, th.model_sse, th.sse_comp,
                th.num_samples, m.vkeys, m.fprints, m.counts, m.points,
@@ -65,12 +70,15 @@ def state_to_numpy(state: OdometryState) -> List[np.ndarray]:
 def state_from_numpy(leaves: Sequence[np.ndarray], config: KISSConfig,
                      device) -> OdometryState:
     """Build the port's state from 12 arrays in the JAX leaf order,
-    validated against the shapes and dtypes `config` implies."""
+    validated against the shapes and dtypes `config` implies. A (B, 4, 4)
+    pose makes it a batched state: every array then has that leading B."""
     if len(leaves) != len(LEAF_NAMES):
         raise ValueError(f"expected {len(LEAF_NAMES)} state arrays, got {len(leaves)}")
     dev = resolve_device(device)
+    lead = np.shape(leaves[0])[:-2]  # (B,) for a batched state, () for one
     arrays = []
     for name, leaf, (shape, dtype) in zip(LEAF_NAMES, leaves, _expected(config)):
+        shape = tuple(lead) + shape
         a = np.asarray(leaf)
         if a.shape != shape or a.dtype != dtype:
             raise ValueError(f"state array {name}: got {a.shape}/{a.dtype}, the "

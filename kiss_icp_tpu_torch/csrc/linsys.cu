@@ -52,6 +52,16 @@
 // Every sum is taken in a fixed order and there are no atomics: two launches
 // on the same input give identical bits. No scratch memory, so the call is
 // safe to capture in a CUDA graph.
+//
+// Batched entry (kiss_linsys_batched): B independent systems of n points
+// each, rows stacked on a leading axis, in ONE launch of B clusters: cluster
+// b is row b (blockIdx.x / kCluster) and runs exactly the single-row
+// program on that row's slice, so row b's bits equal an unbatched launch on
+// row b. A per-row `active` flag (B,) lets a lockstep Gauss-Newton loop
+// skip its converged rows: an inactive row's cluster stages nothing and
+// writes zeros (J^T W J = 0, J^T W r = 0, count 0). The unbatched entry is
+// the kBatched = false instantiation: the single-row program exactly as it
+// was, whose registers the row arithmetic does not touch.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -169,15 +179,45 @@ __device__ __forceinline__ void stage_tile(const float* __restrict__ src,
   }
 }
 
+template <bool kBatched>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 linsys_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
-              const unsigned char* __restrict__ mask, int n,
-              const float* __restrict__ kernel_scale,  // [1]
-              const float* __restrict__ center,        // [3]
+              const unsigned char* __restrict__ mask, int n,  // n points a row
+              const float* __restrict__ kernel_scale,  // [B]
+              const float* __restrict__ center,        // [B][3]
+              const unsigned char* __restrict__ active,  // [B] (batched only)
               int vec,
-              float* __restrict__ out_jtj,             // [36] J^T W J, row-major
-              float* __restrict__ out_jtr,             // [6] J^T W r
-              int* __restrict__ out_count) {           // [1]
+              float* __restrict__ out_jtj,             // [B][36] J^T W J, row-major
+              float* __restrict__ out_jtr,             // [B][6] J^T W r
+              int* __restrict__ out_count) {           // [B]
+  // Blocks grid-stride over the tiles: unbatched, the whole grid is one
+  // cluster; batched, cluster `row` (blockIdx.x / kCluster) serves row
+  // `row` and its blocks stride over that row's tiles.
+  int my_rank = blockIdx.x, ranks = gridDim.x;
+  if constexpr (kBatched) {
+    const int row = blockIdx.x / kCluster;
+    my_rank = blockIdx.x % kCluster;
+    ranks = kCluster;
+    out_jtj += 36 * row;
+    out_jtr += 6 * row;
+    out_count += row;
+    if (!active[row]) {
+      // The whole cluster leaves before any cluster barrier; rank 0 writes
+      // the zero system.
+      if (my_rank == 0) {
+        if (threadIdx.x < 36) out_jtj[threadIdx.x] = 0.f;
+        if (threadIdx.x < 6) out_jtr[threadIdx.x] = 0.f;
+        if (threadIdx.x == 0) *out_count = 0;
+      }
+      return;
+    }
+    const int64_t first = static_cast<int64_t>(row) * n;
+    src += 3 * first;
+    tgt += 3 * first;
+    mask += first;
+    kernel_scale += row;
+    center += 3 * row;
+  }
   __shared__ __align__(16) float s_src[3 * kTile];
   __shared__ __align__(16) float s_tgt[3 * kTile];
   __shared__ __align__(16) unsigned char s_mask[kTile];
@@ -200,8 +240,8 @@ linsys_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
   for (int t = 0; t < 32; ++t) acc[t] = 0.0;
   int count = 0;
 
-  for (int64_t tile0 = static_cast<int64_t>(blockIdx.x) * kTile; tile0 < n;
-       tile0 += static_cast<int64_t>(gridDim.x) * kTile) {
+  for (int64_t tile0 = static_cast<int64_t>(my_rank) * kTile; tile0 < n;
+       tile0 += static_cast<int64_t>(ranks) * kTile) {
     const int64_t left = n - tile0;
     const int m = left < kTile ? static_cast<int>(left) : kTile;
     stage_tile(src + 3 * tile0, tgt + 3 * tile0, mask + tile0, m, vec != 0, s_src, s_tgt,
@@ -303,10 +343,24 @@ linsys_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
 extern "C" int kiss_linsys(const void* src, const void* tgt, const void* mask, int n,
                            const void* kernel_scale, const void* center, int vec,
                            void* jtj, void* jtr, void* count, void* stream) {
-  linsys_kernel<<<kCluster, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  linsys_kernel<false><<<kCluster, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(src), static_cast<const float*>(tgt),
       static_cast<const unsigned char*>(mask), n, static_cast<const float*>(kernel_scale),
-      static_cast<const float*>(center), vec, static_cast<float*>(jtj),
+      static_cast<const float*>(center), nullptr, vec, static_cast<float*>(jtj),
       static_cast<float*>(jtr), static_cast<int*>(count));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One launch for `rows` rows of n points: one cluster a row.
+extern "C" int kiss_linsys_batched(const void* src, const void* tgt, const void* mask,
+                                   int rows, int n, const void* kernel_scale,
+                                   const void* center, const void* active, int vec,
+                                   void* jtj, void* jtr, void* count, void* stream) {
+  if (rows <= 0) return 0;
+  linsys_kernel<true><<<kCluster * rows, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(src), static_cast<const float*>(tgt),
+      static_cast<const unsigned char*>(mask), n, static_cast<const float*>(kernel_scale),
+      static_cast<const float*>(center), static_cast<const unsigned char*>(active), vec,
+      static_cast<float*>(jtj), static_cast<float*>(jtr), static_cast<int*>(count));
   return static_cast<int>(cudaGetLastError());
 }

@@ -58,6 +58,18 @@
 // reduction, 8192 times per launch, so instruction issue, not memory,
 // is the next limit (an estimate from the instruction mix; the card's
 // machine offers no profiler counters).
+//
+// Batched entry (kiss_nn27_batched): B maps stacked on a leading axis
+// (vkeys (B,C,3), fprints and counts (B,C), points (B,C,P,3)) and S queries
+// a map, (B,S,3), in ONE launch: the warp of flat query q serves row
+// q / S and offsets every table pointer by that row's stride, so its
+// arithmetic, and its bits, are those of an unbatched launch on row b. A
+// per-row `active` flag (B,) lets a lockstep Gauss-Newton loop skip its
+// converged rows: an inactive row's warps load nothing and write a zero
+// neighbour, an infinite distance and not-found. The unbatched entry is the
+// kBatched = false instantiation: the single-map program exactly as it was
+// (32 registers, so 8 blocks an SM), which the row arithmetic does not
+// touch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -121,9 +133,10 @@ __device__ __forceinline__ int probe_window(const int* __restrict__ fprints, int
   return -1;
 }
 
-template <bool kU16>
+template <bool kU16, bool kBatched>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 nn27_kernel(const float* __restrict__ queries, const bool* __restrict__ valid, int n,
+            int per_row, const unsigned char* __restrict__ active, int64_t slots,
             const int* __restrict__ vkeys, const int* __restrict__ fprints,
             const int* __restrict__ counts, const void* __restrict__ points_raw,
             int p, int probe_len, int probe_shift, int row_bits, float v, float dec,
@@ -132,6 +145,24 @@ nn27_kernel(const float* __restrict__ queries, const bool* __restrict__ valid, i
   const int lane = threadIdx.x & 31;
   const int q = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (q >= n) return;  // whole warp exits together
+  int64_t point_base = 0;  // elements, f32 or u16
+  if constexpr (kBatched) {
+    // The map of this query's row: `slots` slots a row.
+    const int row = q / per_row;
+    if (!active[row]) {
+      if (lane == 0) {
+        float* o = out_nn + 3 * static_cast<int64_t>(q);
+        o[0] = o[1] = o[2] = 0.f;
+        out_dist[q] = INFINITY;
+        out_found[q] = false;
+      }
+      return;
+    }
+    vkeys += 3 * slots * row;
+    fprints += slots * row;
+    counts += slots * row;
+    point_base = slots * p * 3 * row;
+  }
 
   const float* qp = queries + 3 * static_cast<int64_t>(q);
   const float qx = qp[0], qy = qp[1], qz = qp[2];
@@ -197,14 +228,14 @@ nn27_kernel(const float* __restrict__ queries, const bool* __restrict__ valid, i
           const float corny =
               __fmul_rn(static_cast<float>(add_wrap(vy, shift_of((j / 3) % 3))), v);
           const float cornz = __fmul_rn(static_cast<float>(add_wrap(vz, shift_of(j % 3))), v);
-          px[u] = __fadd_rn(__fmul_rn(static_cast<float>(pts[e]), dec), cornx);
-          py[u] = __fadd_rn(__fmul_rn(static_cast<float>(pts[e + 1]), dec), corny);
-          pz[u] = __fadd_rn(__fmul_rn(static_cast<float>(pts[e + 2]), dec), cornz);
+          px[u] = __fadd_rn(__fmul_rn(static_cast<float>(pts[point_base + e]), dec), cornx);
+          py[u] = __fadd_rn(__fmul_rn(static_cast<float>(pts[point_base + e + 1]), dec), corny);
+          pz[u] = __fadd_rn(__fmul_rn(static_cast<float>(pts[point_base + e + 2]), dec), cornz);
         } else {
           const float* pts = static_cast<const float*>(points_raw);
-          px[u] = pts[e];
-          py[u] = pts[e + 1];
-          pz[u] = pts[e + 2];
+          px[u] = pts[point_base + e];
+          py[u] = pts[point_base + e + 1];
+          pz[u] = pts[point_base + e + 2];
         }
       }
     }
@@ -259,17 +290,21 @@ nn27_kernel(const float* __restrict__ queries, const bool* __restrict__ valid, i
 
 }  // namespace
 
-extern "C" int kiss_nn27(const void* queries, const void* valid, int n, const void* vkeys,
-                         const void* fprints, const void* counts, const void* points,
-                         int quantized, int p, int probe_len, int probe_shift,
-                         int row_bits, float v, float dec, int vec_probe, void* out_nn,
-                         void* out_dist, void* out_found, void* stream) {
+namespace {
+
+template <bool kBatched>
+int launch_nn27(const void* queries, const void* valid, int n, int per_row,
+                const void* active, int64_t slots, const void* vkeys, const void* fprints,
+                const void* counts, const void* points, int quantized, int p, int probe_len,
+                int probe_shift, int row_bits, float v, float dec, int vec_probe,
+                void* out_nn, void* out_dist, void* out_found, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const dim3 threads(kWarpsPerBlock * 32);
   const float* q = static_cast<const float*>(queries);
   const bool* va = static_cast<const bool*>(valid);
+  const unsigned char* ac = static_cast<const unsigned char*>(active);
   const int* vk = static_cast<const int*>(vkeys);
   const int* fpr = static_cast<const int*>(fprints);
   const int* cn = static_cast<const int*>(counts);
@@ -277,13 +312,40 @@ extern "C" int kiss_nn27(const void* queries, const void* valid, int n, const vo
   float* dist = static_cast<float*>(out_dist);
   bool* fo = static_cast<bool*>(out_found);
   if (quantized) {
-    nn27_kernel<true><<<blocks, threads, 0, s>>>(q, va, n, vk, fpr, cn, points, p,
-                                                 probe_len, probe_shift, row_bits, v,
-                                                 dec, vec_probe, nn, dist, fo);
+    nn27_kernel<true, kBatched><<<blocks, threads, 0, s>>>(
+        q, va, n, per_row, ac, slots, vk, fpr, cn, points, p, probe_len, probe_shift,
+        row_bits, v, dec, vec_probe, nn, dist, fo);
   } else {
-    nn27_kernel<false><<<blocks, threads, 0, s>>>(q, va, n, vk, fpr, cn, points, p,
-                                                  probe_len, probe_shift, row_bits, v,
-                                                  dec, vec_probe, nn, dist, fo);
+    nn27_kernel<false, kBatched><<<blocks, threads, 0, s>>>(
+        q, va, n, per_row, ac, slots, vk, fpr, cn, points, p, probe_len, probe_shift,
+        row_bits, v, dec, vec_probe, nn, dist, fo);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// One map, n queries.
+extern "C" int kiss_nn27(const void* queries, const void* valid, int n, const void* vkeys,
+                         const void* fprints, const void* counts, const void* points,
+                         int quantized, int p, int probe_len, int probe_shift,
+                         int row_bits, float v, float dec, int vec_probe, void* out_nn,
+                         void* out_dist, void* out_found, void* stream) {
+  return launch_nn27<false>(queries, valid, n, n, nullptr, 0, vkeys, fprints, counts,
+                     points, quantized, p, probe_len, probe_shift, row_bits, v, dec,
+                     vec_probe, out_nn, out_dist, out_found, stream);
+}
+
+// `rows` maps of `slots` slots each, `per_row` queries a map, one launch.
+extern "C" int kiss_nn27_batched(const void* queries, const void* valid, int rows,
+                                 int per_row, const void* active, long long slots,
+                                 const void* vkeys, const void* fprints, const void* counts,
+                                 const void* points, int quantized, int p, int probe_len,
+                                 int probe_shift, int row_bits, float v, float dec,
+                                 int vec_probe, void* out_nn, void* out_dist,
+                                 void* out_found, void* stream) {
+  if (rows <= 0 || per_row <= 0) return 0;
+  return launch_nn27<true>(queries, valid, rows * per_row, per_row, active, slots, vkeys, fprints,
+                     counts, points, quantized, p, probe_len, probe_shift, row_bits, v, dec,
+                     vec_probe, out_nn, out_dist, out_found, stream);
 }

@@ -94,12 +94,13 @@ def build_log() -> str:
 
 
 def _kernel_name(mangled: str) -> str:
-    """`linsys_kernel` or `nn27_kernel<1>` from an Itanium-mangled name: the
-    identifier `<len><name>_kernel` whose length prefix matches, then a
-    bool template argument if there is one."""
-    for m in re.finditer(r"(?=(\d+)([a-z][a-z0-9_]*?_kernel)(ILb([01])E)?)", mangled):
+    """`linsys_kernel<0>` or `nn27_kernel<1,0>` from an Itanium-mangled
+    name: the identifier `<len><name>_kernel` whose length prefix matches,
+    then its bool template arguments if it has any."""
+    for m in re.finditer(r"(?=(\d+)([a-z][a-z0-9_]*?_kernel)(I((?:Lb[01]E)+)E)?)", mangled):
         if int(m.group(1)) == len(m.group(2)):
-            return m.group(2) + (f"<{m.group(4)}>" if m.group(4) else "")
+            flags = ",".join(re.findall(r"Lb([01])E", m.group(4) or ""))
+            return m.group(2) + (f"<{flags}>" if flags else "")
     return mangled
 
 

@@ -113,6 +113,85 @@ def _sigma_for_frame(config: KISSConfig, state: OdometryState) -> torch.Tensor:
     return threshold.compute_threshold(state.threshold)
 
 
+def _deskew_downsample(config: KISSConfig, points, timestamps, valid, deskew_delta):
+    """Steps 1-2 for one deskew hypothesis: motion-compensate the raw scan
+    with `deskew_delta`, crop, and build the map-update cloud."""
+    with record_function("kiss/preprocess"):
+        prep = preprocess.preprocess(
+            points, timestamps, valid, deskew_delta,
+            max_range=float(config.data.max_range),
+            min_range=float(config.data.min_range),
+            deskew=bool(config.data.deskew),
+        )
+    with record_function("kiss/downsample"):
+        frame_ds = voxel.voxel_downsample(
+            prep.points, prep.valid, voxel_size=float(config.mapping.voxel_size) * 0.5,
+            capacity=int(config.engine.frame_capacity))
+    return prep, frame_ds
+
+
+def _source_cloud(config: KISSConfig, frame_ds):
+    """Step 3: the ICP source, the map-update cloud downsampled at 1.5 v."""
+    with record_function("kiss/downsample"):
+        return voxel.voxel_downsample(
+            frame_ds.points, frame_ds.valid,
+            voxel_size=float(config.mapping.voxel_size) * 1.5,
+            capacity=int(config.engine.source_capacity))
+
+
+def _finish_frame(config: KISSConfig, state: OdometryState, prep, frame_ds, source, sigma,
+                  initial_guess, new_pose, pose_finite, total_iterations,
+                  num_dropped_downsample, num_correspondences, num_dropped_compact,
+                  donate: bool) -> Tuple[OdometryState, FrameResult]:
+    """Steps 5d-9 after registration: ground alignment, the threshold's
+    model deviation, map insert and trim, the new state and the result."""
+    mcfg = map_config(config)
+    # 5d. Ground-plane attitude stabilization (engine.ground_align > 0,
+    #    ops/ground.py), fitted on the half-voxel cloud.
+    with record_function("kiss/ground"):
+        new_pose = ground.maybe_align(config, frame_ds.points, frame_ds.valid, new_pose)
+
+    # 6.-7. Model deviation feeds the threshold estimator.
+    model_deviation = se3.inverse(initial_guess) @ new_pose
+    new_threshold = threshold.update_model_deviation(
+        state.threshold, model_deviation,
+        max_range=float(config.data.max_range),
+        min_motion_th=float(config.adaptive_threshold.min_motion_th),
+    )
+
+    # 8. Merge the scan into the local map, then trim far voxels
+    #    (reference VoxelHashMap::Update, VoxelHashMap.cpp:83-95).
+    with record_function("kiss/map_insert"):
+        world_points = se3.transform(new_pose, frame_ds.points)
+        m = state.map if donate else copy_map(state.map)
+        new_map, insert_stats = hash_map.insert(mcfg, m, world_points, frame_ds.valid)
+    with record_function("kiss/map_trim"):
+        new_map = hash_map.trim(mcfg, new_map, new_pose[:3, 3])
+
+    # 9. Constant-velocity bookkeeping.
+    new_state = OdometryState(
+        pose=new_pose,
+        delta=se3.inverse(state.pose) @ new_pose,
+        threshold=new_threshold,
+        map=new_map,
+    )
+    result = FrameResult(
+        pose=new_pose,
+        frame_points=prep.points,
+        frame_valid=prep.valid,
+        source_points=source.points,
+        source_valid=source.valid,
+        sigma=sigma,
+        num_iterations=total_iterations,
+        num_correspondences=num_correspondences,
+        num_dropped_downsample=num_dropped_downsample,
+        num_dropped_map_voxels=insert_stats.num_dropped_voxels + num_dropped_compact,
+        num_oob_points=insert_stats.num_oob_points,
+        used_fallback=~pose_finite,
+    )
+    return new_state, result
+
+
 def register_frame(
     config: KISSConfig,
     state: OdometryState,
@@ -139,30 +218,11 @@ def register_frame(
         donate = bool(e.donate_state)
     sigma = _sigma_for_frame(config, state)
 
-    def deskew_downsample(deskew_delta):
-        """Steps 1-2 for one deskew hypothesis: motion-compensate the raw
-        scan with `deskew_delta`, crop, and build the map-update cloud."""
-        with record_function("kiss/preprocess"):
-            prep = preprocess.preprocess(
-                points, timestamps, valid, deskew_delta,
-                max_range=float(config.data.max_range),
-                min_range=float(config.data.min_range),
-                deskew=bool(config.data.deskew),
-            )
-        with record_function("kiss/downsample"):
-            frame_ds = voxel.voxel_downsample(
-                prep.points, prep.valid, voxel_size=vsize * 0.5,
-                capacity=int(e.frame_capacity))
-        return prep, frame_ds
-
     def deskew_register(deskew_delta, guess):
-        """Steps 1-5 for one deskew hypothesis: deskew_downsample, the ICP
-        source downsample, and registration against the map from `guess`."""
-        prep, frame_ds = deskew_downsample(deskew_delta)
-        with record_function("kiss/downsample"):
-            source = voxel.voxel_downsample(
-                frame_ds.points, frame_ds.valid, voxel_size=vsize * 1.5,
-                capacity=int(e.source_capacity))
+        """Steps 1-5 for one deskew hypothesis: the two clouds and
+        registration against the map from `guess`."""
+        prep, frame_ds = _deskew_downsample(config, points, timestamps, valid, deskew_delta)
+        source = _source_cloud(config, frame_ds)
         with record_function("kiss/align"):
             align = registration.align_points_to_map(
                 mcfg, state.map, source.points, source.valid, guess,
@@ -211,52 +271,12 @@ def register_frame(
     #    the map-update cloud from the raw scan re-deskewed with the
     #    estimated motion; the pose is untouched.
     if bool(e.deskew_refine_map):
-        prep, frame_ds = deskew_downsample(se3.inverse(state.pose) @ new_pose)
+        prep, frame_ds = _deskew_downsample(config, points, timestamps, valid,
+                                            se3.inverse(state.pose) @ new_pose)
 
-    # 5d. Ground-plane attitude stabilization (engine.ground_align > 0,
-    #    ops/ground.py), fitted on the half-voxel cloud.
-    with record_function("kiss/ground"):
-        new_pose = ground.maybe_align(config, frame_ds.points, frame_ds.valid, new_pose)
-
-    # 6.-7. Model deviation feeds the threshold estimator.
-    model_deviation = se3.inverse(initial_guess) @ new_pose
-    new_threshold = threshold.update_model_deviation(
-        state.threshold, model_deviation,
-        max_range=float(config.data.max_range),
-        min_motion_th=float(config.adaptive_threshold.min_motion_th),
-    )
-
-    # 8. Merge the scan into the local map, then trim far voxels
-    #    (reference VoxelHashMap::Update, VoxelHashMap.cpp:83-95).
-    with record_function("kiss/map_insert"):
-        world_points = se3.transform(new_pose, frame_ds.points)
-        m = state.map if donate else copy_map(state.map)
-        new_map, insert_stats = hash_map.insert(mcfg, m, world_points, frame_ds.valid)
-    with record_function("kiss/map_trim"):
-        new_map = hash_map.trim(mcfg, new_map, new_pose[:3, 3])
-
-    # 9. Constant-velocity bookkeeping.
-    new_state = OdometryState(
-        pose=new_pose,
-        delta=se3.inverse(state.pose) @ new_pose,
-        threshold=new_threshold,
-        map=new_map,
-    )
-    result = FrameResult(
-        pose=new_pose,
-        frame_points=prep.points,
-        frame_valid=prep.valid,
-        source_points=source.points,
-        source_valid=source.valid,
-        sigma=sigma,
-        num_iterations=total_iterations,
-        num_correspondences=align.num_correspondences,
-        num_dropped_downsample=num_dropped_downsample,
-        num_dropped_map_voxels=insert_stats.num_dropped_voxels + align.num_dropped_compact,
-        num_oob_points=insert_stats.num_oob_points,
-        used_fallback=~pose_finite,
-    )
-    return new_state, result
+    return _finish_frame(config, state, prep, frame_ds, source, sigma, initial_guess,
+                         new_pose, pose_finite, total_iterations, num_dropped_downsample,
+                         align.num_correspondences, align.num_dropped_compact, donate)
 
 
 def copy_map(m: hash_map.VoxelMap) -> hash_map.VoxelMap:
@@ -265,6 +285,122 @@ def copy_map(m: hash_map.VoxelMap) -> hash_map.VoxelMap:
     written, by the step)."""
     return m._replace(vkeys=m.vkeys.clone(), fprints=m.fprints.clone(),
                       counts=m.counts.clone(), points=m.points.clone())
+
+
+# --- B sequences, stacked on a leading axis (parallel/batch.py) -------------
+
+
+def lockstep_eligible(config: KISSConfig) -> bool:
+    """Whether `register_frame_batched` runs the rows' Gauss-Newton loops as
+    one lockstep loop: the default association (gather27, or pallas_fused,
+    which is the same query here) with no deskew refinement and no ground
+    alignment."""
+    e = config.engine
+    return (str(e.nn_mode) in ("gather27", "pallas_fused") and int(e.deskew_refine) == 0
+            and not bool(e.deskew_refine_map) and float(e.ground_align) == 0.0)
+
+
+def state_row(state: OdometryState, b: int) -> OdometryState:
+    """Row b of a stacked state: views, so that a step updating the row's
+    map in place updates the stacked map."""
+    return torch.utils._pytree.tree_map(lambda x: x[b], state)
+
+
+def store_rows(state: OdometryState, rows) -> OdometryState:
+    """The stacked state whose row b is `rows[b]`: each map table is written
+    into the stacked table where the row's step returned a new tensor (the
+    steps update counts and points in place, through the views of
+    `state_row`); the small leaves are stacked anew."""
+    m = state.map
+    for b, row in enumerate(rows):
+        for name in ("vkeys", "fprints", "counts", "points"):
+            dst, src = getattr(m, name)[b], getattr(row.map, name)
+            if src.data_ptr() != dst.data_ptr():
+                bits = hash_map._BITS.get(dst.dtype, dst.dtype)
+                dst.view(bits).copy_(src.view(bits))
+
+    def stacked(get):
+        return torch.stack([get(r) for r in rows])
+
+    return OdometryState(
+        pose=stacked(lambda r: r.pose),
+        delta=stacked(lambda r: r.delta),
+        threshold=threshold.ThresholdState(*(stacked(lambda r, i=i: r.threshold[i])
+                                             for i in range(3))),
+        map=m._replace(total_points=stacked(lambda r: r.map.total_points),
+                       num_dropped_voxels=stacked(lambda r: r.map.num_dropped_voxels),
+                       num_oob_points=stacked(lambda r: r.map.num_oob_points)),
+    )
+
+
+def register_frame_batched(
+    config: KISSConfig,
+    state: OdometryState,
+    points: torch.Tensor,
+    timestamps: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    donate: Optional[bool] = None,
+) -> Tuple[OdometryState, FrameResult]:
+    """One frame of B sequences (JAX: `jax.vmap(register_frame)`): a state
+    whose every leaf has a leading B, points (B,N,3), timestamps (B,N),
+    valid (B,N) -> (state, FrameResult with a leading B). Row b's result is
+    its own `register_frame`.
+
+    With the default path (`lockstep_eligible`), the rows' Gauss-Newton
+    loops run as ONE lockstep loop (registration.align_lockstep): each
+    iteration launches K2 and K1 once for all rows, so a frame's launches
+    are the most iterations of any row (plus one final count), not their
+    sum. The stages before and after the loop (preprocess, both
+    downsamples, the threshold, ground, insert, trim) run row by row on
+    views of the stacked state. With any other nn_mode or frame option,
+    each row runs `register_frame` on its views: the same results, with a
+    frame's launches summed over the rows.
+
+    `donate` (default `engine.donate_state`) as in `register_frame`: False
+    copies the stacked map once and leaves the caller's state as it was.
+    """
+    check_supported(config)
+    if donate is None:
+        donate = bool(config.engine.donate_state)
+    if not donate:
+        state = state._replace(map=copy_map(state.map))
+    n_rows = points.shape[0]
+    rows = [state_row(state, b) for b in range(n_rows)]
+    if not lockstep_eligible(config):
+        outs = [register_frame(config, rows[b], points[b], timestamps[b], valid[b],
+                               donate=True) for b in range(n_rows)]
+    else:
+        fronts = []
+        for b, row in enumerate(rows):
+            sigma = _sigma_for_frame(config, row)
+            guess = row.pose @ row.delta
+            prep, frame_ds = _deskew_downsample(config, points[b], timestamps[b], valid[b],
+                                                row.delta)
+            fronts.append((sigma, guess, prep, frame_ds, _source_cloud(config, frame_ds)))
+        sigmas = torch.stack([f[0] for f in fronts])
+        with record_function("kiss/align"):
+            align = registration.align_lockstep(
+                map_config(config), state.map,
+                torch.stack([f[4].points for f in fronts]),
+                torch.stack([f[4].valid for f in fronts]),
+                torch.stack([f[1] for f in fronts]), 3.0 * sigmas, sigmas,
+                max_iterations=int(config.registration.max_num_iterations),
+                convergence=float(config.registration.convergence_criterion))
+        outs = []
+        for b, (row, (sigma, guess, prep, frame_ds, source)) in enumerate(zip(rows, fronts)):
+            pose = align.pose[b]
+            pose_finite = torch.all(torch.isfinite(pose))
+            new_pose = se3.orthonormalize(torch.where(pose_finite, pose, guess))
+            outs.append(_finish_frame(
+                config, row, prep, frame_ds, source, sigma, guess, new_pose, pose_finite,
+                align.num_iterations[b], frame_ds.num_dropped + source.num_dropped,
+                align.num_correspondences[b], torch.zeros_like(align.num_iterations[b]),
+                donate=True))
+    new_state = store_rows(state, [o[0] for o in outs])
+    result = FrameResult(*(torch.stack(f) for f in zip(*(o[1] for o in outs))))
+    # The state and the result share the pose tensor, as in register_frame.
+    return new_state, result._replace(pose=new_state.pose)
 
 
 def make_step(config: KISSConfig) -> Callable[..., Tuple[OdometryState, FrameResult]]:
@@ -415,7 +551,7 @@ def subsample_to_capacity(frame, timestamps, cap: int):
 def create_odometry(config: KISSConfig, device=None) -> "KissICP":
     """Engine factory used by the pipeline and the CLI. The map-sharded
     engine of the JAX package (`engine.map_shards > 1`) is not ported yet:
-    `check_supported` refuses it (ROADMAP item 16)."""
+    `check_supported` refuses it (ROADMAP item 16b)."""
     check_supported(config)
     return KissICP(config, device=device)
 

@@ -308,3 +308,148 @@ def align_points_to_map(
     # a branch keeps frame 0 free of kernel launches.
     return AlignResult(*control.cond(hash_map.is_empty(m), empty, register,
                                      (initial_guess.to(torch.float32),)))
+
+
+# --- B sequences in lockstep (parallel/batch.py) ----------------------------
+
+
+def solve_increments(ls: LinearSystem) -> torch.Tensor:
+    """`solve_increment` over B systems at once: JTJ (B,6,6), JTr (B,6),
+    count (B,) -> dx (B,6), with the same guards row by row (one batched
+    Cholesky factorisation and solve)."""
+    jtj = ls.jtj
+    scale = torch.amax(torch.abs(torch.diagonal(jtj, dim1=-2, dim2=-1)), dim=-1)
+    eps = torch.where(scale > 0, scale * 1e-7, torch.ones_like(scale))
+    jtj = jtj + eps[:, None, None] * torch.eye(6, dtype=jtj.dtype, device=jtj.device)
+    chol, info = torch.linalg.cholesky_ex(jtj)
+    dx = torch.cholesky_solve(-ls.jtr[..., None], chol)[..., 0]
+    zero = torch.zeros_like(dx)
+    ok = (info == 0) & torch.all(torch.isfinite(dx), dim=-1)
+    dx = torch.where(ok[:, None], dx, zero)
+    norm = torch.linalg.norm(dx, dim=-1, keepdim=True)
+    dx = torch.where(norm > 10.0, dx * (10.0 / norm), dx)
+    return torch.where((ls.num_correspondences > 0)[:, None], dx, zero)
+
+
+def transform_rows(poses: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Row b's (4, 4) pose applied to row b's points: (B,4,4), (B,N,3) ->
+    (B,N,3), as `se3.transform` does for one row."""
+    r = poses[..., :3, :3]
+    t = poses[..., :3, 3]
+    return points @ r.transpose(-1, -2) + t[:, None, :]
+
+
+def _apply_increments(dx: torch.Tensor, center: torch.Tensor, src: torch.Tensor,
+                      t_icp: torch.Tensor):
+    """`_apply_increment` for B rows: dx (B,6), center (B,3), src (B,N,3),
+    t_icp (B,4,4) -> (src, t_icp, step (B,))."""
+    est = se3.se3_exp(dx)
+    est[:, :3, 3] += center - (est[:, :3, :3] @ center[..., None])[..., 0]
+    v, w = dx[:, :3], dx[:, 3:]
+    v_world = v - torch.linalg.cross(w, center, dim=-1)
+    step = torch.sqrt(torch.sum(v_world * v_world, dim=-1) + torch.sum(w * w, dim=-1))
+    return transform_rows(est, src), est @ t_icp, step
+
+
+def gauss_newton_loop_lockstep(
+    points: torch.Tensor,
+    valid: torch.Tensor,
+    initial_guess: torch.Tensor,
+    max_distance: torch.Tensor,
+    kernel_scale: torch.Tensor,
+    active: torch.Tensor,
+    *,
+    query_fn: Callable,
+    linsys_fn: Callable,
+    max_iterations: int,
+    convergence: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`gauss_newton_loop` for B rows in lockstep (JAX: the loop under
+    `jax.vmap`): points (B,N,3), valid (B,N), initial_guess (B,4,4),
+    max_distance and kernel_scale (B,), active (B,) bool (a row that starts
+    inactive does no iteration).
+
+    query_fn(src, active) -> (distances (B,N), neighbors (B,N,3));
+    linsys_fn(src, neighbors, mask, kernel_scale, center, active) ->
+    LinearSystem of B rows. Each iteration makes one call of each for all
+    rows, solves the B systems in one batched factorisation and moves every
+    row still running; a row that has converged or run `max_iterations`
+    keeps its carry, as `vmap`'s frozen rows do, so its result is its own
+    `gauss_newton_loop`. The loop ends once no row runs: one host read per
+    iteration, whatever B. Returns (t_icp (B,4,4), iterations (B,) int32).
+    """
+    guess = initial_guess.to(torch.float32)
+    src0 = transform_rows(guess, points)
+    center = guess[:, :3, 3].contiguous()  # the K1 kernel reads it by pointer
+    b, dev = points.shape[0], points.device
+
+    def running(it, done):
+        return (it < max_iterations) & ~done
+
+    def cond(src, t_icp, it, done):
+        return torch.any(running(it, done))
+
+    def body(src, t_icp, it, done):
+        run = running(it, done)
+        dist, neighbors = query_fn(src, run)
+        corr = torch.isfinite(dist) & valid & (dist < max_distance[:, None])
+        dx = solve_increments(linsys_fn(src, neighbors, corr, kernel_scale, center, run))
+        new_src, new_t, step = _apply_increments(dx, center, src, t_icp)
+        return (torch.where(run[:, None, None], new_src, src),
+                torch.where(run[:, None, None], new_t, t_icp),
+                it + run.to(torch.int32),
+                done | (run & (step < convergence)))
+
+    eye = se3.identity(device=dev).expand(b, 4, 4).contiguous()
+    _, t_icp, it, _ = control.while_loop(cond, body, (
+        src0, eye, torch.zeros(b, dtype=torch.int32, device=dev), ~active))
+    return t_icp, it
+
+
+class LockstepAlign(NamedTuple):
+    pose: torch.Tensor  # (B, 4, 4) new world pose of each row's scan
+    num_iterations: torch.Tensor  # (B,) int32
+    num_correspondences: torch.Tensor  # (B,) int32 — after the last iteration
+
+
+def align_lockstep(
+    cfg: hash_map.MapConfig,
+    m: hash_map.VoxelMap,
+    points: torch.Tensor,
+    valid: torch.Tensor,
+    initial_guess: torch.Tensor,
+    max_distance: torch.Tensor,
+    kernel_scale: torch.Tensor,
+    *,
+    max_iterations: int,
+    convergence: float,
+) -> LockstepAlign:
+    """`align_points_to_map` (nn_mode gather27 / pallas_fused) for B rows
+    against their B stacked maps (every table of `m` with a leading B), with
+    one batched K2 and one batched K1 launch per lockstep iteration
+    (kernels/nn27.query_nearest_batched, kernels/linsys.build_linear_systems).
+    A row whose map is empty keeps its guess with 0 iterations and 0
+    correspondences, as the unbatched empty-map branch does. The final
+    correspondence count is one more batched query, skipped (no launch) when
+    every map is empty."""
+    from kiss_icp_tpu_torch.kernels import linsys, nn27
+
+    guess = initial_guess.to(torch.float32)
+    present = ~hash_map.is_empty(m)
+
+    def query_fn(src, run):
+        q = nn27.query_nearest_batched(cfg, m, src, valid, run)
+        return q.distances, q.neighbors
+
+    t_icp, iters = gauss_newton_loop_lockstep(
+        points, valid, guess, max_distance, kernel_scale, present,
+        query_fn=query_fn, linsys_fn=linsys.build_linear_systems,
+        max_iterations=max_iterations, convergence=convergence)
+    pose = torch.where(present[:, None, None], t_icp @ guess, guess)
+    if bool(torch.any(present)):
+        q = nn27.query_nearest_batched(cfg, m, transform_rows(pose, points), valid, present)
+        n_corr = torch.sum(q.found & (q.distances < max_distance[:, None]), dim=-1,
+                           dtype=torch.int32)
+    else:
+        n_corr = torch.zeros(points.shape[0], dtype=torch.int32, device=points.device)
+    return LockstepAlign(pose, iters, n_corr)

@@ -47,7 +47,7 @@ DEFAULT_PARAMETERS = {
     "orientation_covariance": 0.1,
     # Engine scale-out: shard the voxel map over this many devices. The
     # map-sharded engine is not ported yet: > 1 raises NotImplementedError
-    # (ROADMAP item 16). No reference analog — the rclcpp node's map is one
+    # (ROADMAP item 16b). No reference analog — the rclcpp node's map is one
     # robin_map on one host.
     "map_shards": 1,
     # Ground-plane attitude stabilization strength (engine.ground_align,

@@ -50,7 +50,7 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--meta", type=Path, default=None,
                    help="Metadata file (ouster pcap)")
     p.add_argument("--visualize", "-v", action="store_true",
-                   help="Open the interactive visualizer (not ported yet)")
+                   help="Open the interactive visualizer")
     p.add_argument("--profile", type=Path, default=None, metavar="DIR",
                    help="Write a host and device trace (torch.profiler, "
                         "Chrome format) to DIR/trace.json for Perfetto")
@@ -76,11 +76,6 @@ def main(argv=None) -> int:
     if args.data is None:
         print("[ERROR] Missing data path argument", file=sys.stderr)
         return 2
-    if args.visualize:
-        raise NotImplementedError(
-            "--visualize: the interactive visualizer is not ported yet "
-            "(ROADMAP item 17b)")
-
     dataloader = args.dataloader or guess_dataloader(args.data) or "generic"
 
     # Validation mirroring the reference (cmd.py:203-213).
@@ -109,11 +104,18 @@ def main(argv=None) -> int:
         print(f"[ERROR] {e}", file=sys.stderr)
         return 1
 
+    visualizer = None
+    if args.visualize:
+        from kiss_icp_tpu_torch.tools.visualizer import Kissualizer
+
+        visualizer = Kissualizer()
+
     from kiss_icp_tpu_torch.pipeline import OdometryPipeline
 
     pipeline = OdometryPipeline(
         dataset,
         config=args.config,
+        visualizer=visualizer,
         max_range=args.max_range,
         deskew=args.deskew,
         n_scans=args.n_scans,

@@ -18,6 +18,14 @@ so found, distances and neighbours are bit-equal. Also on the card: the
 registered operators `kiss_icp_torch::linsys` / `::nn27` under
 `torch.library.opcheck`, and a step exported by io/aot.py against the live
 step, bit for bit.
+
+The batched operators (`::linsys_batched`, `::nn27_batched`: the same
+kernels over B stacked rows, one launch, with a per-row `active` flag) are
+held bit for bit to the unbatched kernel row by row, on the hand-made maps
+too; an inactive row does no work and gives the defined empty answer; the
+batched plain versions equal the kernels as the unbatched ones do; and the
+lockstep batched step on the card launches each kernel once per lockstep
+iteration and matches the same step on the CPU.
 """
 
 import numpy as np
@@ -508,3 +516,153 @@ def test_exported_step_on_card_matches_live(cuda, tmp_path):
     assert all(torch.equal(a[0], b[0]) and a[1] == b[1] for a, b in zip(live, art))
     assert all(torch.equal(a, b) for a, b in zip(lstate.map, astate.map))
     assert (a1, a2) == (l1, l2) and l1 > 0 and l2 > 0
+
+
+def _stacked_k1(b, n, dev):
+    rows = [_k1_case(n, 10 + i, True, dev) for i in range(b)]
+    src, tgt, mask = (torch.stack([r[j] for r in rows]) for j in range(3))
+    scale = torch.tensor([0.7, 1.3, 0.4, 2.0][:b], device=dev)
+    center = torch.tensor([[3.0, -2.0, 1.0], [0.0, 5.0, -1.0], [-4.0, 1.0, 2.0],
+                           [1.0, 1.0, 1.0]][:b], device=dev)
+    return src, tgt, mask, scale, center
+
+
+# 8193: rows start off the 16 B alignment (the scalar staging path).
+@pytest.mark.parametrize("n", [8192, 8193, 100, 0])
+def test_linsys_batched_rows_bit_equal_to_unbatched(cuda, n):
+    src, tgt, mask, scale, center = _stacked_k1(4, n, cuda)
+    active = torch.tensor([True, True, False, True], device=cuda)
+    before = linsys.build_linear_system.launches
+    got = linsys.build_linear_systems(src, tgt, mask, scale, center, active)
+    torch.cuda.synchronize()
+    assert linsys.build_linear_system.launches == before + 1
+    plain = linsys.plain_linsys_batched(src, tgt, mask, scale, center, active)
+    for b in range(4):
+        if not bool(active[b]):
+            assert not bool(got.jtj[b].any()) and not bool(got.jtr[b].any())
+            assert int(got.num_correspondences[b]) == 0
+            continue
+        one = linsys.build_linear_system(src[b], tgt[b], mask[b], scale[b],
+                                         center[b].contiguous())
+        assert torch.equal(got.jtj[b], one.jtj) and torch.equal(got.jtr[b], one.jtr)
+        assert int(got.num_correspondences[b]) == int(one.num_correspondences)
+        torch.testing.assert_close(got.jtj[b], plain[0][b], rtol=2e-5, atol=1e-3)
+        torch.testing.assert_close(got.jtr[b], plain[1][b], rtol=2e-5, atol=1e-3)
+        assert int(got.num_correspondences[b]) == int(plain[2][b])
+
+
+def _stack_maps(rows):
+    """Maps stacked on a leading axis (u16 points as their int16 bits: CUDA
+    has few uint16 kernels)."""
+    def stack(ts):
+        if ts[0].dtype == torch.uint16:
+            return torch.stack([t.view(torch.int16) for t in ts]).view(torch.uint16)
+        return torch.stack(ts)
+    return hm.VoxelMap(*(stack(f) for f in zip(*rows)))
+
+
+def _assert_nn_rows(cfg, m, rows, q, valid, active):
+    """The batched kernel against the unbatched kernel row by row, and
+    against the batched plain version on the card, bit for bit."""
+    before = nn27.query_nearest.launches
+    got = nn27.query_nearest_batched(cfg, m, q, valid, active)
+    torch.cuda.synchronize()
+    assert nn27.query_nearest.launches == before + 1
+    plain = nn27.plain_nn27_batched(q, valid, active, *m[:4], float(cfg.voxel_size),
+                                    int(cfg.probe_length))
+    for b in range(q.shape[0]):
+        for x, y in zip(got, plain):
+            assert torch.equal(x[b].view(torch.int8), y[b].view(torch.int8))
+        if not bool(active[b]):
+            assert not bool(got.found[b].any()) and bool(torch.isinf(got.distances[b]).all())
+            continue
+        one = nn27.query_nearest(cfg, rows[b], q[b], valid[b])
+        assert torch.equal(got.found[b], one.found)
+        assert torch.equal(got.distances[b].view(torch.int32), one.distances.view(torch.int32))
+        assert torch.equal(got.neighbors[b], one.neighbors)
+    return got
+
+
+@pytest.mark.parametrize("storage", ["f32", "u16"])
+def test_nn27_batched_bit_equal_to_unbatched(cuda, storage):
+    rows = [_map(storage, cuda, 20, seed=s)[1] for s in range(3)]
+    cfg = _map(storage, cuda, 20)[0]
+    m = _stack_maps(rows)
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.uniform(-14, 14, (3, 4096, 3)).astype(np.float32)).to(cuda)
+    valid = torch.from_numpy(rng.random((3, 4096)) > 0.1).to(cuda)
+    got = _assert_nn_rows(cfg, m, rows, q, valid,
+                          torch.tensor([True, False, True], device=cuda))
+    assert int(got.found[0].sum()) > 1000
+
+
+@pytest.mark.parametrize("name", sorted(cases.CASES))
+def test_nn27_batched_hand_made_rules(cuda, name):
+    """Each hand-made map twice, the second row with its queries shifted:
+    row 0 gives the case's answer, both rows the unbatched kernel's."""
+    case = cases.CASES[name]()
+    cfg, one = cases.to_map(case, cuda)
+    m = _stack_maps([one, one])
+    q0 = torch.from_numpy(case.queries).to(cuda)
+    q = torch.stack([q0, q0 + 0.25])
+    valid = torch.from_numpy(case.valid).to(cuda).expand(2, -1).contiguous()
+    got = _assert_nn_rows(cfg, m, [one, one], q, valid,
+                          torch.ones(2, dtype=torch.bool, device=cuda))
+    assert np.array_equal(got.neighbors[0].cpu().numpy(), case.neighbors)
+    assert np.array_equal(got.distances[0].cpu().numpy(), case.distances, equal_nan=True)
+    assert np.array_equal(got.found[0].cpu().numpy(), case.found)
+
+
+@pytest.mark.parametrize("op", ["linsys_batched", "nn27_batched"])
+def test_batched_operators_pass_opcheck_on_card(cuda, op):
+    if op == "linsys_batched":
+        args = _stacked_k1(3, 8192, cuda) + (torch.tensor([True, False, True], device=cuda),)
+    else:
+        rows = [_map("f32", cuda, 20, seed=s)[1] for s in range(2)]
+        cfg = _map("f32", cuda, 20)[0]
+        m = _stack_maps(rows)
+        rng = np.random.default_rng(4)
+        q = torch.from_numpy(rng.uniform(-12, 12, (2, 8192, 3)).astype(np.float32)).to(cuda)
+        args = (q, torch.from_numpy(rng.random((2, 8192)) > 0.1).to(cuda),
+                torch.tensor([True, False], device=cuda), m.vkeys, m.fprints, m.counts,
+                m.points, float(cfg.voxel_size), int(cfg.probe_length))
+    torch.library.opcheck(getattr(torch.ops.kiss_icp_torch, op).default, args)
+
+
+def test_lockstep_step_on_card_matches_cpu_and_launches_once_per_iteration(cuda):
+    """Three sequences at distinct velocities through the batched step on the
+    card and on the CPU: equal iterations, poses within 1e-4; on the card K1
+    launches once per lockstep iteration and K2 once more a frame."""
+    from kiss_icp_tpu_torch.parallel import batch as pbatch
+
+    cfg = KISSConfig()
+    cfg.data.max_range = 50.0
+    cfg.data.min_range = 1.0
+    cfg.mapping.voxel_size = 0.5
+    cfg.engine.max_points_per_frame = 4096
+    cfg.engine.frame_capacity = 4096
+    cfg.engine.source_capacity = 1024
+    cfg.engine.map_capacity_log2 = 15
+    b, k = 3, 4
+    rng = np.random.default_rng(2)
+    base = rng.uniform(-30, 30, (b, 4096, 3)).astype(np.float32)
+    pts = np.stack([base + np.arange(1, b + 1)[:, None, None].astype(np.float32)
+                    * np.float32([0.15, 0.02, 0.0]) * i for i in range(k)])
+    ts, valid = np.zeros((k, b, 4096), np.float32), np.ones((k, b, 4096), bool)
+    runs = {}
+    for d in ("cuda", "cpu"):
+        step = pbatch.make_batched_step(cfg, pbatch.make_mesh(device=d))
+        state = pbatch.init_batched_state(cfg, b, d)
+        k1, k2 = linsys.build_linear_system.launches, nn27.query_nearest.launches
+        poses, iters = [], []
+        for i in range(k):
+            state, res = step(state, pts[i], ts[i], valid[i])
+            poses.append(res.pose.cpu().numpy())
+            iters.append(res.num_iterations.cpu().numpy())
+        runs[d] = (np.stack(poses), np.stack(iters), linsys.build_linear_system.launches - k1,
+                   nn27.query_nearest.launches - k2)
+    (pc, ic, c1, c2), (pp, ip, _, _) = runs["cuda"], runs["cpu"]
+    np.testing.assert_array_equal(ic, ip)
+    np.testing.assert_allclose(pc, pp, atol=1e-4)
+    lockstep = int(ic.max(axis=1).sum())
+    assert (c1, c2) == (lockstep, lockstep + k - 1) and lockstep > 0

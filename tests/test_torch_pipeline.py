@@ -6,7 +6,7 @@ metrics.py) end to end on the CPU, against the JAX package's.
   * the pipeline's poses equal JAX's OdometryPipeline on the same synthetic
     drive at atol 1e-4 (as tests/test_torch_odometry.py holds poses), and
     the chunked driver equals the streaming one bit for bit;
-  * the CLI's return codes, --version, --visualize (not ported) and a full
+  * the CLI's return codes, --version, --visualize and a full
     run on a directory of .bin scans with --device cpu, beside JAX's CLI;
   * metrics bit-equal to JAX's on random trajectories;
   * the golden of chip_smoke.py's cli phase is made with the current
@@ -158,8 +158,9 @@ def test_cli_validation_and_version(tmp_path, capsys):
         cmd.main(["--version"])
     assert exc.value.code == 0
     assert "kiss_icp_tpu_torch" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 17b"):
-        cmd.main([str(tmp_path), "--visualize"])
+    # --visualize on an empty directory: both CLIs fail on the data first.
+    assert cmd.main([str(tmp_path), "--visualize"]) == \
+        jcmd.main([str(tmp_path), "--visualize"]) == 1
     # A family with no data in the directory: both CLIs report it and exit 1.
     assert cmd.main([str(tmp_path), "--dataloader", "nclt"]) == \
         jcmd.main([str(tmp_path), "--dataloader", "nclt"]) == 1
