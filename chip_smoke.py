@@ -69,7 +69,18 @@ non-zero without printing the final result line):
                frame); the "map" chunked mode, launches summed over rows;
                ms per lockstep frame, sequence-frames/s, launches and peak
                memory at B = 1, 4, 8
- 16. tools     tools/op_breakdown over 6 of the drive's scans on the card (its
+ 16. shards    the rest of parallel/: the drive's scans through create_odometry
+               with map_shards = 2 and 4 (within 5e-4 m of the drive, the
+               verify gates, one batched K1 and one batched K2 launch per GN
+               iteration for all shards, the batched kernels over the shard
+               rows bit-equal to the unbatched ones, balanced occupancy), a
+               drive that rolls its origin every voxel and a checkpoint round
+               trip, ms per frame and peak memory at D = 1, 2, 4 (one card
+               holds every shard); the pod (2 sequences x 2 shards, each
+               within 1e-5 m of its own map-sharded drive); the pts axis (2
+               stripes against the single align); tools/scaling_bench.py at 1
+               and 2 processes on this card, against one BatchedOdometry
+ 17. tools     tools/op_breakdown over 6 of the drive's scans on the card (its
                per-stage table, the kernels as the profiler saw them) and
                tools/capacity_plan over the drive's 12 scans
 Each mode and option is driven with the kernels' launch counters set to 0
@@ -566,14 +577,18 @@ def main() -> int:
         batch_launches, batch_kernels = phase_batch(cfg, scans, ds, drive, smi)
         mode_launches.update(batch_launches)
         t3 = time.perf_counter()
+        shard_launches, shard_kernels = phase_shards(cfg, scans, ds, drive, icp, Path(tmp), smi)
+        mode_launches.update(shard_launches)
+        t4 = time.perf_counter()
         phase_tools(cfg, scans, ds, smi)
         print(f"time: phase loaders {t1 - t0:.1f} s, phase ros {t2 - t1:.1f} s, phase batch "
-              f"{t3 - t2:.1f} s, phase tools {time.perf_counter() - t3:.1f} s, the script "
+              f"{t3 - t2:.1f} s, phase shards {t4 - t3:.1f} s, phase tools "
+              f"{time.perf_counter() - t4:.1f} s, the script "
               f"{time.perf_counter() - t_start:.1f} s (host clock); on {smi}", flush=True)
     for k, key in zip(kernels, ("k1", "k2")):
         k["launches_cli"] = {run: cli_launches[run][key] for run in ("A", "B")}
         k["launches_modes"] = {name: counts[key] for name, counts in mode_launches.items()}
-    kernels.extend(batch_kernels)
+    kernels.extend(batch_kernels + shard_kernels)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -1545,8 +1560,318 @@ def phase_batch(cfg, scans, ds, drive: dict, smi: str):
     return out, entries
 
 
+SHARD_COUNTS = (2, 4)
+# tests/test_sharded_map.py:68, tests/test_sharded_engine.py:52: the sharded
+# engine against the single-device one.
+SHARD_POSE_TOL = 5e-4
+# tests/test_pod.py:64: each pod sequence against its own map-sharded drive;
+# tests/test_multihost_2proc.py:73: 2 processes against one.
+POD_TOL = MULTIPROC_TOL = 1e-5
+# tests/test_sharded_icp.py: the pts axis against the single-device align.
+PTS_TOL = 1e-4
+# The multi-process runs of tools/scaling_bench.py: B sequences, K frames.
+SCALING_BATCH, SCALING_FRAMES, SCALING_TIMEOUT_S = 4, 6, 300
+
+
+def sharded_drive(cfg, scans, **engine) -> dict:
+    """`drive_engine` over an engine made by `create_odometry` with the
+    given engine settings on top of `cfg`, with the peak device memory
+    (torch.cuda.max_memory_allocated) and what was allocated before."""
+    import torch
+
+    from kiss_icp_tpu_torch.odometry import create_odometry
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    icp = create_odometry(engine_config(cfg, engine))
+    run = drive_engine(icp, scans)
+    run.update(engine=icp, max_allocated=torch.cuda.max_memory_allocated(), base_bytes=base)
+    return run
+
+
+def phase_shards(cfg, scans, ds, drive: dict, icp, tmp: Path, smi: str):
+    """16. The rest of parallel/ on the card: (a) the drive through
+    create_odometry with map_shards = 2 and 4, against the drive and the
+    verify gates, one batched K1 and one batched K2 launch per GN iteration
+    for all shards, the batched kernels over the shard rows against the
+    unbatched ones and their plain versions, the occupancy, a drive whose
+    origin rolls every voxel of travel and a checkpoint round trip, ms per
+    frame and peak memory at D = 1, 2, 4; (b) the pod, 2 sequences x 2
+    shards, each against its own map-sharded drive; (c) the pts axis, the
+    drive's last frame registered over 2 stripes against the single align;
+    (d) tools/scaling_bench.py at 1 and 2 processes on this card (gloo for
+    the host-side pose exchange) against one BatchedOdometry here.
+    Returns (launch columns, per-kernel entries for the kernels line)."""
+    import torch
+
+    from kiss_icp_tpu_torch.kernels import linsys, nn27
+    from kiss_icp_tpu_torch.odometry import create_odometry, map_config
+    from kiss_icp_tpu_torch.ops import hash_map, registration, se3
+    from kiss_icp_tpu_torch.parallel import pod, sharded_icp, sharded_map
+    from kiss_icp_tpu_torch.parallel.batch import BatchedOdometry
+    from kiss_icp_tpu_torch.parallel.grid import DeviceMesh, GridAxis
+    from kiss_icp_tpu_torch.parallel.sharded_engine import ShardedKissICP
+    from kiss_icp_tpu_torch.tools import scaling_bench
+
+    dev = icp.device
+    gt = ds.gt_poses[:N_FRAMES]
+    finals = N_FRAMES - 1  # a final count in every frame after the first
+    out, entries, report = {}, [], []
+
+    # (a) D = 1 (the single-device engine), 2, 4.
+    timed = {1: sharded_drive(cfg, scans)}
+    for d in SHARD_COUNTS:
+        run = timed[d] = sharded_drive(cfg, scans, map_shards=d)
+        eng = run["engine"]
+        check(isinstance(eng, ShardedKissICP) and eng.device.type == "cuda"
+              and eng.mesh.shape == {"map": d},
+              f"shards D={d}: create_odometry gave {type(eng).__name__} on {eng.device}")
+        err = np.linalg.norm(run["poses"][:, :3, 3] - gt[:, :3, 3], axis=1)
+        check_verify_gates(f"shards D={d}", run, err)
+        diff = float(np.abs(run["poses"] - drive["poses"]).max())
+        check(diff <= SHARD_POSE_TOL, f"shards D={d}: {diff:.3e} m from the drive")
+        want = {"k1": sum(run["iters"]), "k2": sum(run["iters"]) + finals}
+        check(run["launches"] == want,
+              f"shards D={d}: launches {run['launches']}, one per GN iteration is {want}")
+        occ = eng.shard_occupancy()
+        check(occ.min() > 0 and occ.max() <= 3 * occ.min(),
+              f"shards D={d}: occupancy {occ.tolist()} not balanced within 3x")
+        out[f"shards D={d}"] = run["launches"]
+        report.append(f"D={d}: max_err {err.max():.4f} m, {diff:.3e} m from the drive, "
+                      f"iters {run['iters']} (drive {drive['iters']}), launches K1 "
+                      f"{run['launches']['k1']} / K2 {run['launches']['k2']} (one per GN "
+                      f"iteration for all {d} shards + {finals} final counts), occupancy "
+                      f"{occ.tolist()}")
+
+    # The batched kernels at the map-sharded step's shapes: the D = 4 drive's
+    # final shard tables as rows, its last ICP source at its final pose
+    # expanded over them (made contiguous), the D stripes.
+    d = SHARD_COUNTS[-1]
+    eng = timed[d]["engine"]
+    mcfg = sharded_map.local_map_config(eng.config, eng.mesh)
+    rows = sharded_map.shard_rows(eng.state, d)
+    res = eng.last_result
+    s = res.source_points.shape[0]
+    q = se3.transform(eng.state.pose, res.source_points).expand(d, s, 3).contiguous()
+    v = res.source_valid.expand(d, s).contiguous()
+    active = torch.ones(d, dtype=torch.bool, device=dev)
+    shard_maps = [hash_map.VoxelMap(*(t[i] for t in rows[:4]), None, None, None)
+                  for i in range(d)]
+    got = nn27.query_nearest_batched(mcfg, rows, q, v, active)
+    plain = nn27.plain_nn27_batched(q, v, active, *rows[:4], float(mcfg.voxel_size),
+                                    int(mcfg.probe_length))
+    for i in range(d):
+        one = nn27.query_nearest(mcfg, shard_maps[i], q[i], v[i])
+        for x, y, z in zip(got, one, plain):
+            check(torch.equal(x[i].view(torch.int8), y.view(torch.int8))
+                  and torch.equal(x[i].view(torch.int8), z[i].view(torch.int8)),
+                  f"shards k2 shard {i}: the batched kernel differs from the unbatched "
+                  "kernel or the plain version")
+    stripe = ((torch.arange(s, device=dev) % d)[None, :]
+              == torch.arange(d, device=dev)[:, None])
+    corr = got.found & (got.distances < 3.0 * res.sigma) & stripe
+    center = eng.state.pose[:3, 3].expand(d, 3).contiguous()
+    scale = res.sigma.expand(d).contiguous()
+    k1_args = (q, got.neighbors, corr, scale, center, active)
+    sys_ = linsys.build_linear_systems(*k1_args)
+    plain1 = linsys.plain_linsys_batched(*k1_args)
+    k1_err = 0.0
+    for i in range(d):
+        one = linsys.build_linear_system(q[i], got.neighbors[i], corr[i], scale[i], center[i])
+        check(torch.equal(sys_.jtj[i], one.jtj) and torch.equal(sys_.jtr[i], one.jtr),
+              f"shards k1 stripe {i}: the batched kernel differs from the unbatched kernel")
+        for a, p_ in ((sys_.jtj[i], plain1[0][i]), (sys_.jtr[i], plain1[1][i])):
+            check(torch.allclose(a, p_, rtol=2e-5, atol=1e-3),
+                  f"shards k1 stripe {i}: kernel disagrees with the plain version")
+            k1_err = max(k1_err, float((a - p_).abs().max()))
+    on_host = active.cpu()
+    k1_ms, k1_plain_ms = paired_times(
+        lambda: linsys.build_linear_systems(*k1_args),
+        lambda: linsys.plain_linsys_batched(*k1_args[:5], on_host), 200, 20)
+    k2_ms, k2_plain_ms = paired_times(
+        lambda: nn27.query_nearest_batched(mcfg, rows, q, v, active),
+        lambda: nn27.plain_nn27_batched(q, v, on_host, *rows[:4], float(mcfg.voxel_size),
+                                        int(mcfg.probe_length)), 100, 5)
+
+    def total(works):
+        flops = {}
+        for _, f in works:
+            for key, val in f.items():
+                flops[key] = flops.get(key, 0) + val
+        return sum(w[0] for w in works) + d, flops  # + the active flags
+
+    for kname, src, replaces, nl, err_, ms, pms, (nb, fl) in (
+            (f"linsys (K1), batched over D={d} map-shard stripes",
+             "kiss_icp_tpu_torch/csrc/linsys.cu", "kiss_icp_tpu/ops/pallas_kernels.py:31",
+             timed[d]["launches"]["k1"], k1_err, k1_ms, k1_plain_ms,
+             total([k1_work(s, int(corr[i].sum())) for i in range(d)])),
+            (f"nn27 (K2), batched over D={d} map shards", "kiss_icp_tpu_torch/csrc/nn27.cu",
+             "kiss_icp_tpu/ops/pallas_nn.py:60", timed[d]["launches"]["k2"], 0.0, k2_ms,
+             k2_plain_ms, total([k2_work(mcfg, shard_maps[i], q[i]) for i in range(d)]))):
+        b_ms, b_by = bound(nb, fl)
+        entries.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": nl, "max_abs_err": err_, "ms": ms[0], "plain_ms": pms[0],
+                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                        "eager_ms": ms[1], "plain_eager_ms": pms[1], "bytes": nb, "flops": fl})
+        print(f"shards times: {kname}: {ms[0] * 1e3:.2f} us/call on the device, "
+              f"{ms[1] * 1e3:.2f} us issued eagerly (plain {pms[0] * 1e3:.2f} / "
+              f"{pms[1] * 1e3:.2f} us); bound {b_ms * 1e3:.4f} us by {b_by} ({nb} B, {fl} "
+              f"flop by type); on {smi}", flush=True)
+    del got, sys_, plain, plain1, rows, shard_maps
+
+    # The origin rolled every voxel of travel, then a checkpoint round trip.
+    roll = sharded_drive(cfg, scans, map_shards=d, rebase_trigger_voxels=1)
+    eng_r = roll["engine"]
+    check(np.any(eng_r.origin != 0), "shards rebase: the origin never rolled")
+    err = np.linalg.norm(roll["poses"][:, :3, 3] - gt[:, :3, 3], axis=1)
+    check_verify_gates(f"shards D={d} rebase", roll, err)
+    dt = float(np.abs(roll["poses"][:, :3, 3] - timed[d]["poses"][:, :3, 3]).max())
+    dr = float(np.abs(roll["poses"][:, :3, :3] - timed[d]["poses"][:, :3, :3]).max())
+    check(dt <= REBASE_ATOL_T and dr <= REBASE_ATOL_R,
+          f"shards rebase: {dt:.3e} m / {dr:.3e} from the D={d} drive")
+    out[f"shards D={d} rebase"] = roll["launches"]
+    ckpt = tmp / "sharded.npz"
+    eng_r.save_checkpoint(ckpt)
+    back = create_odometry(engine_config(cfg, dict(map_shards=d, rebase_trigger_voxels=1)))
+    back.load_checkpoint(ckpt)
+    check(np.array_equal(back.origin, eng_r.origin), "shards checkpoint: origin lost")
+    for e in (eng_r, back):
+        e.register_frame(*scans[-1])
+    check(np.array_equal(back.last_pose, eng_r.last_pose)
+          and np.array_equal(back.shard_occupancy(), eng_r.shard_occupancy()),
+          "shards checkpoint: the resumed engine's next frame differs")
+    report.append(f"D={d} rolling the origin every voxel: origin {eng_r.origin.tolist()}, "
+                  f"{dt:.3e} m / {dr:.3e} from the D={d} drive, max_err {err.max():.4f} m; "
+                  "checkpoint -> fresh engine -> next frame bit-identical")
+    del eng_r, back, roll
+
+    times = "; ".join(
+        f"D={k}: p50 {r['p50']:.2f} ms/frame, max_memory_allocated "
+        f"{r['max_allocated'] / 2**30:.3f} GiB ({(r['max_allocated'] - r['base_bytes']) / 2**30:.3f}"
+        f" above the {r['base_bytes'] / 2**30:.3f} allocated before)" for k, r in timed.items())
+    print(f"shards: the drive's {N_FRAMES} scans through create_odometry with map_shards = "
+          + ", ".join(map(str, SHARD_COUNTS)) + f" (2^{cfg.engine.map_capacity_log2} slots "
+          f"split into 2^{cfg.engine.map_capacity_log2 - 1} / "
+          f"2^{cfg.engine.map_capacity_log2 - 2} a shard); " + "; ".join(report)
+          + f"; batched K2 over the D={d} shard rows bit-equal to the unbatched kernel and "
+          f"the plain version, batched K1 over the stripes bit-equal to the unbatched "
+          f"kernel, within rtol 2e-5 of the plain version (max |diff| {k1_err:.3e}); on {smi}",
+          flush=True)
+    print(f"shards timed (host clock, frames 2-12; one card holds every shard, so sharding "
+          f"saves no device memory here): {times}; on {smi}", flush=True)
+    for r in timed.values():
+        del r["engine"]
+
+    # (b) The pod: the drive and the drive turned 90 deg, 2 shards each.
+    pcfg = engine_config(cfg, dict(map_shards=2))
+    turned, gt1 = rotated(scans, gt, 1)
+    single1 = sharded_drive(cfg, turned, map_shards=2)
+    del single1["engine"]
+    po = pod.PodOdometry(pcfg, batch=2)
+    check(po.mesh.shape == {"seq": 1, "map": 2} and po.state.pose.device.type == "cuda",
+          f"pod: grid {po.mesh.shape} on {po.state.pose.device}")
+    linsys.build_linear_system.launches = 0
+    nn27.query_nearest.launches = 0
+    t0 = time.perf_counter()
+    poses = po.register_chunks([[p for p, _ in scans], [p for p, _ in turned]],
+                               [[t for _, t in scans], [t for _, t in turned]])
+    pod_s = time.perf_counter() - t0
+    launches = {"k1": linsys.build_linear_system.launches, "k2": nn27.query_nearest.launches}
+    iters = po.last_results.num_iterations.cpu().numpy()
+    check(launches == {"k1": int(iters.sum()), "k2": int(iters.sum()) + 2 * finals},
+          f"pod: launches {launches} for iterations {iters.tolist()}")
+    pod_diff = []
+    for b, ref in enumerate((timed[2], single1)):
+        diff = float(np.abs(poses[b].astype(np.float64) - ref["poses"]).max())
+        check(diff <= POD_TOL, f"pod: sequence {b} {diff:.3e} m from its map-sharded drive")
+        check([int(x) for x in iters[b]] == ref["iters"],
+              f"pod: sequence {b} iterations {iters[b].tolist()}, its drive {ref['iters']}")
+        err = np.linalg.norm(poses[b][:, :3, 3] - (gt, gt1)[b][:, :3, 3], axis=1)
+        check(err.max() < 0.7, f"pod: sequence {b} max_err {err.max():.4f} m")
+        pod_diff.append(diff)
+    out["pod B=2 D=2"] = launches
+    print(f"pod: 2 sequences (the drive, and turned 90 deg) x 2 map shards through "
+          f"PodOdometry.register_chunks, {N_FRAMES} frames each in {pod_s:.1f} s; each within "
+          f"{max(pod_diff):.3e} m of its own map-sharded drive (tol {POD_TOL}), iterations "
+          f"equal, launches K1 {launches['k1']} / K2 {launches['k2']} (sequence by sequence); "
+          f"on {smi}", flush=True)
+    del po
+
+    # (c) The pts axis: the drive's last frame registered again from its
+    # final pose moved 0.3 m, over 2 stripes of its source, against the
+    # single-device align.
+    mcfg1 = map_config(cfg)
+    m, last = icp.state.map, icp.last_result
+    guess = icp.state.pose.clone()
+    guess[0, 3] += 0.3
+    args = (last.source_points, last.source_valid, guess, 3.0 * last.sigma, last.sigma)
+    kw = dict(max_iterations=int(cfg.registration.max_num_iterations),
+              convergence=float(cfg.registration.convergence_criterion))
+    single = registration.align_points_to_map(mcfg1, m, *args, **kw)
+    mesh = DeviceMesh(dev, ((sharded_icp.PTS_AXIS, GridAxis(2)),))
+    linsys.build_linear_system.launches = 0
+    nn27.query_nearest.launches = 0
+    striped = sharded_icp.make_sharded_align(mcfg1, mesh, **kw)(m, *args)
+    launches = {"k1": linsys.build_linear_system.launches, "k2": nn27.query_nearest.launches}
+    pdiff = float((striped.pose - single.pose).abs().max())
+    check(pdiff <= PTS_TOL and int(striped.num_correspondences)
+          == int(single.num_correspondences),
+          f"pts: {pdiff:.3e} from the single align, correspondences "
+          f"{int(striped.num_correspondences)} / {int(single.num_correspondences)}")
+    n_it = int(striped.num_iterations)
+    check(launches == {"k1": n_it, "k2": n_it + 1}, f"pts: launches {launches}, {n_it} iterations")
+    out["pts 2 stripes"] = launches
+    print(f"pts: make_sharded_align over 2 stripes of the drive's last source "
+          f"({int(last.source_valid.sum())} points) from its final pose + 0.3 m: {pdiff:.3e} "
+          f"from align_points_to_map (tol {PTS_TOL}), correspondences "
+          f"{int(striped.num_correspondences)} equal, iterations {n_it} (single "
+          f"{int(single.num_iterations)}), launches K1 {launches['k1']} (2 stripes a launch) "
+          f"/ K2 {launches['k2']}; on {smi}", flush=True)
+
+    # (d) Multi-process: scaling_bench at 1 and 2 processes on this card.
+    t0 = time.perf_counter()
+    summary_path = tmp / "scaling.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "kiss_icp_tpu_torch.tools.scaling_bench", "--devices", "1,2",
+         "--batch", str(SCALING_BATCH), "--frames", str(SCALING_FRAMES),
+         "--timeout", str(SCALING_TIMEOUT_S), "--out", str(summary_path)],
+        cwd=REPO, capture_output=True, text=True, timeout=SCALING_TIMEOUT_S + 60)
+    for ln in proc.stderr.splitlines():
+        if ln.startswith("rank ") or "FAILED" in ln:
+            print(f"multihost {ln}", flush=True)
+    check(proc.returncode == 0,
+          f"multihost: scaling_bench rc={proc.returncode}\n{proc.stderr[-3000:]}")
+    summary = json.loads(summary_path.read_text())
+    rows_ = {r["devices"]: r for r in summary["rows"]}
+    check(set(rows_) == {1, 2} and all("error" not in r for r in rows_.values()),
+          f"multihost: rows {summary['rows']}")
+    ccfg = scaling_bench._child_config()
+    frames = scaling_bench._frames(SCALING_BATCH, SCALING_FRAMES,
+                                   ccfg.engine.max_points_per_frame)
+    bo = BatchedOdometry(ccfg, SCALING_BATCH)
+    for j in range(SCALING_FRAMES):
+        ref = bo.register_frames(list(frames[j]))
+    mp_diff = {}
+    for n, r in rows_.items():
+        check(r["device"].startswith("cuda"), f"multihost: {n} process(es) ran on {r['device']}")
+        mp_diff[n] = float(np.abs(np.asarray(r["final_translations"]) - ref[:, :3, 3]).max())
+        check(mp_diff[n] <= MULTIPROC_TOL,
+              f"multihost: {n} process(es) {mp_diff[n]:.3e} m from one BatchedOdometry")
+    out["multihost 2 proc, rank 0"] = rows_[2]["launches_rank0"]
+    print(f"multihost: tools/scaling_bench.py, {SCALING_BATCH} sequences x {SCALING_FRAMES} "
+          f"frames at 1 and 2 processes on this one card (gloo for the pose exchange; the "
+          f"processes share the card, so this is no scaling measurement): sequence-frames/s "
+          + ", ".join(f"{n} proc {r['seq_frames_per_s']:.2f}" for n, r in rows_.items())
+          + f"; final translations within {max(mp_diff.values()):.3e} m of one "
+          f"BatchedOdometry here (tol {MULTIPROC_TOL}); rank 0's launches "
+          f"{rows_[2]['launches_rank0']}; {time.perf_counter() - t0:.1f} s; on {smi}",
+          flush=True)
+    return out, entries
+
+
 def phase_tools(cfg, scans, ds, smi: str) -> None:
-    """16. The host tools on the card: tools/op_breakdown over the drive's
+    """17. The host tools on the card: tools/op_breakdown over the drive's
     first 6 scans (the last 3 profiled), its per-stage table and the two
     kernels as the profiler saw them; tools/capacity_plan over the drive's
     12 scans and ground truth, beside the drive's configured capacities."""

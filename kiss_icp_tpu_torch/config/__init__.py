@@ -6,7 +6,6 @@ from kiss_icp_tpu_torch.config.schema import (
     KISSConfig,
     MappingConfig,
     RegistrationConfig,
-    check_supported,
     config_from_dict,
     config_to_dict,
 )
@@ -18,7 +17,6 @@ __all__ = [
     "KISSConfig",
     "MappingConfig",
     "RegistrationConfig",
-    "check_supported",
     "config_from_dict",
     "config_to_dict",
     "load_config",

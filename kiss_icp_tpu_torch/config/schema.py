@@ -6,8 +6,8 @@ The `engine` section keeps the JAX package's fixed capacities: the port keeps
 fixed-shape padded buffers, so point budgets, map capacity and probe length
 stay first-class configuration.
 
-Every key of the JAX package runs on the port except `engine.map_shards > 1`
-(the map-sharded engine, ROADMAP item 16b), which `check_supported` refuses.
+Every key of the JAX package runs on the port; `engine.map_shards > 1`
+selects the map-sharded engine (parallel/sharded_engine.py).
 """
 
 from __future__ import annotations
@@ -116,7 +116,10 @@ class EngineConfig:
     # translation): past it, KissICP.maybe_rebase rolls the world origin
     # forward (hash_map.rebase). 0 disables the check.
     rebase_trigger_voxels: int = 4096
-    # Map sharding over several devices (not ported yet; must stay 1).
+    # Map sharding: > 1 splits the voxel map's slots into this many shards
+    # (parallel/sharded_engine.py; a power of two below the capacity). On
+    # one card every shard sits on it; across the ranks of a process group
+    # each rank holds its share.
     map_shards: int = 1
 
     @property
@@ -132,14 +135,6 @@ class KISSConfig:
     mapping: MappingConfig = field(default_factory=MappingConfig)
     adaptive_threshold: AdaptiveThresholdConfig = field(default_factory=AdaptiveThresholdConfig)
     engine: EngineConfig = field(default_factory=EngineConfig)
-
-
-def check_supported(cfg: KISSConfig) -> None:
-    """Raise NotImplementedError for a config that asks for the one feature
-    the port does not have yet, naming the ROADMAP item that brings it."""
-    if int(cfg.engine.map_shards) > 1:
-        raise NotImplementedError(
-            "engine.map_shards > 1 is not ported yet (ROADMAP item 16b)")
 
 
 def _update_dataclass(obj: Any, values: Dict[str, Any], path: str = "") -> None:

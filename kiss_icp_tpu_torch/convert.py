@@ -12,7 +12,10 @@ order its checkpoints store as leaf_0 ... leaf_11):
 
 A batched state (parallel/batch.py: every leaf stacked on a leading B, as
 the JAX package's `init_batched_state`) crosses the same way, each array
-with its leading B.
+with its leading B. With `engine.map_shards` = D > 1 the state is the
+map-sharded engine's `ShardedMapState` (parallel/sharded_map.py): the same
+twelve leaves in the same order, its three counters per shard, (D,); the pod
+state (parallel/pod.py) is that with a leading B.
 """
 
 from __future__ import annotations
@@ -38,9 +41,11 @@ def _expected(config: KISSConfig):
     c, p = mcfg.capacity, mcfg.max_points_per_voxel
     pdt = np.uint16 if mcfg.storage == "u16" else np.float32
     f32, i32 = np.float32, np.int32
+    d = int(config.engine.map_shards)
+    per_shard = (d,) if d > 1 else ()
     return [((4, 4), f32), ((4, 4), f32), ((), f32), ((), f32), ((), f32),
             ((c, 3), i32), ((c,), i32), ((c,), i32), ((c, p, 3), pdt),
-            ((), i32), ((), i32), ((), i32)]
+            (per_shard, i32), (per_shard, i32), (per_shard, i32)]
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -57,10 +62,12 @@ def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return torch.tensor(a, device=dev)
 
 
-def state_to_numpy(state: OdometryState) -> List[np.ndarray]:
-    """The state as 12 numpy arrays, in the JAX leaf order (a batched
-    state's with their leading B)."""
-    th, m = state.threshold, state.map
+def state_to_numpy(state) -> List[np.ndarray]:
+    """The state (OdometryState, or the map-sharded ShardedMapState or pod
+    state) as 12 numpy arrays, in the JAX leaf order (a batched state's
+    with their leading B)."""
+    th = state.threshold
+    m = state.map if isinstance(state, OdometryState) else state
     tensors = [state.pose, state.delta, th.model_sse, th.sse_comp,
                th.num_samples, m.vkeys, m.fprints, m.counts, m.points,
                m.total_points, m.num_dropped_voxels, m.num_oob_points]
@@ -68,10 +75,12 @@ def state_to_numpy(state: OdometryState) -> List[np.ndarray]:
 
 
 def state_from_numpy(leaves: Sequence[np.ndarray], config: KISSConfig,
-                     device) -> OdometryState:
+                     device):
     """Build the port's state from 12 arrays in the JAX leaf order,
-    validated against the shapes and dtypes `config` implies. A (B, 4, 4)
-    pose makes it a batched state: every array then has that leading B."""
+    validated against the shapes and dtypes `config` implies: an
+    OdometryState, or with `engine.map_shards` > 1 a ShardedMapState. A
+    (B, 4, 4) pose makes it a batched state (a PodState when sharded):
+    every array then has that leading B."""
     if len(leaves) != len(LEAF_NAMES):
         raise ValueError(f"expected {len(LEAF_NAMES)} state arrays, got {len(leaves)}")
     dev = resolve_device(device)
@@ -87,6 +96,13 @@ def state_from_numpy(leaves: Sequence[np.ndarray], config: KISSConfig,
         arrays.append(_to_device(a, dev))
     (pose, delta, sse, comp, ns, vkeys, fprints, counts, points, total,
      dropped, oob) = arrays
+    if int(config.engine.map_shards) > 1:
+        from kiss_icp_tpu_torch.parallel.pod import PodState
+        from kiss_icp_tpu_torch.parallel.sharded_map import ShardedMapState
+
+        cls = PodState if lead else ShardedMapState
+        return cls(pose, delta, threshold.ThresholdState(sse, comp, ns),
+                   vkeys, fprints, counts, points, total, dropped, oob)
     return OdometryState(
         pose=pose,
         delta=delta,

@@ -34,7 +34,6 @@ import numpy as np
 import torch
 
 from kiss_icp_tpu_torch import odometry
-from kiss_icp_tpu_torch.config.schema import check_supported
 from kiss_icp_tpu_torch.io.checkpoint import _metadata
 # Importing the kernel modules registers the two operators the program calls.
 from kiss_icp_tpu_torch.kernels import linsys, nn27  # noqa: F401
@@ -55,7 +54,6 @@ class _Module(torch.nn.Module):
 
 
 def _export(module, config, frame_shape, device) -> bytes:
-    check_supported(config)
     odometry.register_pytree_types()
     dev = odometry.resolve_device(device)
     n = int(config.engine.max_points_per_frame)
@@ -77,7 +75,9 @@ def export_step(config, device=None) -> bytes:
     FrameResult)`, N = engine.max_points_per_frame, exported for `device`
     (None means CUDA; the tests pass "cpu"). Returns the bytes of
     `torch.export.save`. `engine.donate_state` is frozen into the program:
-    set, it updates the caller's map in place, as the live step does."""
+    set, it updates the caller's map in place, as the live step does. As in
+    the JAX package, this is the single-device step whatever
+    `engine.map_shards` says (the map-sharded engine is not exported)."""
     return _export(_Module(odometry.make_step(config)), config, (), device)
 
 

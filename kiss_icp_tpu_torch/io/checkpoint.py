@@ -6,7 +6,9 @@ OdometryState (pose, delta, threshold.{model_sse, sse_comp, num_samples},
 map.{vkeys, fprints, counts, points, total_points, num_dropped_voxels,
 num_oob_points}; written out by hand in `convert.LEAF_NAMES`), a JSON
 metadata record of the map geometry, and ``extra_<name>`` arrays of host-side
-engine state such as the rolling origin. A checkpoint written by either
+engine state such as the rolling origin. The map-sharded engine's state
+(`engine.map_shards` = D > 1) has the same twelve leaves, its three counters
+(D,) per shard, and its record names D. A checkpoint written by either
 package loads in the other.
 
 Loading validates every array's shape and dtype against the target config
@@ -57,7 +59,8 @@ def _atomic_write(path, arrays: dict) -> None:
 
 
 def save_state(path, state) -> None:
-    """Write an `odometry.OdometryState` to `path` (no metadata): one
+    """Write an `odometry.OdometryState` (or the map-sharded engine's
+    `ShardedMapState`, the same twelve leaves) to `path` (no metadata): one
     device-to-host copy of the map, stored compressed."""
     _atomic_write(path, _state_arrays(state))
 

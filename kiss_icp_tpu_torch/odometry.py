@@ -39,7 +39,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from kiss_icp_tpu_torch.config.schema import KISSConfig, check_supported
+from kiss_icp_tpu_torch.config.schema import KISSConfig
 from kiss_icp_tpu_torch.ops import (ground, hash_map, preprocess, registration,
                                     se3, threshold, voxel)
 
@@ -210,7 +210,6 @@ def register_frame(
     (tools/profile_drive.py reads them; without a profiler they cost a few
     microseconds a frame).
     """
-    check_supported(config)
     mcfg = map_config(config)
     vsize = float(config.mapping.voxel_size)
     e = config.engine
@@ -341,6 +340,8 @@ def register_frame_batched(
     valid: torch.Tensor,
     *,
     donate: Optional[bool] = None,
+    linsys_fn: Optional[Callable] = None,
+    any_active_fn: Optional[Callable] = None,
 ) -> Tuple[OdometryState, FrameResult]:
     """One frame of B sequences (JAX: `jax.vmap(register_frame)`): a state
     whose every leaf has a leading B, points (B,N,3), timestamps (B,N),
@@ -359,8 +360,9 @@ def register_frame_batched(
 
     `donate` (default `engine.donate_state`) as in `register_frame`: False
     copies the stacked map once and leaves the caller's state as it was.
+    `linsys_fn` and `any_active_fn` go to the lockstep loop
+    (registration.align_lockstep): the "pts" axis of parallel/batch.py.
     """
-    check_supported(config)
     if donate is None:
         donate = bool(config.engine.donate_state)
     if not donate:
@@ -386,7 +388,8 @@ def register_frame_batched(
                 torch.stack([f[4].valid for f in fronts]),
                 torch.stack([f[1] for f in fronts]), 3.0 * sigmas, sigmas,
                 max_iterations=int(config.registration.max_num_iterations),
-                convergence=float(config.registration.convergence_criterion))
+                convergence=float(config.registration.convergence_criterion),
+                linsys_fn=linsys_fn, any_active_fn=any_active_fn)
         outs = []
         for b, (row, (sigma, guess, prep, frame_ds, source)) in enumerate(zip(rows, fronts)):
             pose = align.pose[b]
@@ -549,10 +552,14 @@ def subsample_to_capacity(frame, timestamps, cap: int):
 
 
 def create_odometry(config: KISSConfig, device=None) -> "KissICP":
-    """Engine factory used by the pipeline and the CLI. The map-sharded
-    engine of the JAX package (`engine.map_shards > 1`) is not ported yet:
-    `check_supported` refuses it (ROADMAP item 16b)."""
-    check_supported(config)
+    """Engine factory used by the pipeline, the CLI and the ROS node: the
+    single-device KissICP, or for `engine.map_shards > 1` the map-sharded
+    ShardedKissICP (parallel/sharded_engine.py; same host API), as the JAX
+    package's `create_odometry`."""
+    if int(config.engine.map_shards) > 1:
+        from kiss_icp_tpu_torch.parallel.sharded_engine import ShardedKissICP
+
+        return ShardedKissICP(config, device=device)
     return KissICP(config, device=device)
 
 
@@ -561,7 +568,6 @@ class KissICP:
     kiss_icp.py:33-80, KissICP.hpp:56-96)."""
 
     def __init__(self, config: KISSConfig, device=None):
-        check_supported(config)
         self.config = config
         self.device = resolve_device(device)
         self._capacity = int(config.engine.max_points_per_frame)
@@ -575,11 +581,21 @@ class KissICP:
         # origin + local. float64, so kilometres of offset never round.
         self.origin = np.zeros(3, np.float64)
         self.total_rebase_dropped = 0
-        self.state = init_state(config, self.device)
+        self.state = self._init_state()
         self.last_result: Optional[FrameResult] = None
         self.last_chunk_summary: Optional[ChunkSummary] = None
         self.last_chunk_input_dropped = 0
         self._chunk_step = None
+
+    def _init_state(self):
+        """A fresh state on the engine's device. The map-sharded engine
+        (parallel/sharded_engine.ShardedKissICP) overrides this hook, the
+        per-frame step and the chunked step; the host API stays shared."""
+        return init_state(self.config, self.device)
+
+    def _frame_step(self, state, points, timestamps, valid):
+        """One frame on the device, donating the state (the engine owns it)."""
+        return register_frame(self.config, state, points, timestamps, valid, donate=True)
 
     def _pad_into(self, frame: np.ndarray, timestamps, pts: np.ndarray,
                   ts: np.ndarray, valid: np.ndarray) -> None:
@@ -636,9 +652,7 @@ class KissICP:
         re-base: drivers call `maybe_rebase` where they read the pose."""
         chunk, _ = self.build_chunk([frame], [timestamps])
         pts, ts, valid = self._to_device(chunk)
-        # The engine owns its state: it always donates it.
-        self.state, res = register_frame(self.config, self.state, pts[0], ts[0], valid[0],
-                                         donate=True)
+        self.state, res = self._frame_step(self.state, pts[0], ts[0], valid[0])
         self.last_result = res
         return res
 

@@ -19,7 +19,7 @@ Geman-McClure weight, exactly as the reference (Registration.cpp:95-98):
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -115,31 +115,47 @@ def gauss_newton_loop(
     linsys_fn: Callable,
     max_iterations: int,
     convergence: float,
+    any_active_fn: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The ICP loop (reference Registration.cpp:151-164; JAX
     `registration.gauss_newton_loop`).
 
-    query_fn(src) -> (distances (N,), neighbors (N, 3));
+    query_fn(src) -> (distances (..., N), neighbors (..., N, 3));
     linsys_fn(src, neighbors, mask, kernel_scale, center) -> LinearSystem.
+    The map-sharded programs (parallel/) return one answer per local shard
+    row, hence the leading axes; their linsys_fn reduces over the rows.
     Runs until the world-frame increment norm is below `convergence` (the
     iteration that converges still applies its step and is counted) or
     `max_iterations`. Returns (t_icp (4, 4), iterations () int32) with final
     pose = t_icp @ guess.
+
+    `any_active_fn(running) -> running anywhere` (JAX's `any_active_fn`):
+    when several processes share the loop's collectives, every one must run
+    the same number of trips; a process whose own loop is done keeps its
+    carry while the others run (the JAX body's freeze).
     """
     guess = initial_guess.to(torch.float32)
     src0 = se3.transform(guess, points)
     center = guess[:3, 3].contiguous()  # the K1 kernel reads it by pointer
     dev = points.device
 
-    def cond(src, t_icp, it, done):
+    def running(it, done):
         return (it < max_iterations) & ~done
+
+    def cond(src, t_icp, it, done):
+        run = running(it, done)
+        return run if any_active_fn is None else any_active_fn(run)
 
     def body(src, t_icp, it, done):
         dist, neighbors = query_fn(src)
         corr = torch.isfinite(dist) & valid & (dist < max_distance)
         dx = solve_increment(linsys_fn(src, neighbors, corr, kernel_scale, center))
-        src, t_icp, step = _apply_increment(dx, center, src, t_icp)
-        return src, t_icp, it + 1, step < convergence
+        new_src, new_t, step = _apply_increment(dx, center, src, t_icp)
+        if any_active_fn is None:
+            return new_src, new_t, it + 1, step < convergence
+        run = running(it, done)
+        return (torch.where(run, new_src, src), torch.where(run, new_t, t_icp),
+                it + run.to(torch.int32), done | (run & (step < convergence)))
 
     _, t_icp, it, _ = control.while_loop(cond, body, (
         src0, se3.identity(device=dev), torch.zeros((), dtype=torch.int32, device=dev),
@@ -363,6 +379,7 @@ def gauss_newton_loop_lockstep(
     linsys_fn: Callable,
     max_iterations: int,
     convergence: float,
+    any_active_fn: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`gauss_newton_loop` for B rows in lockstep (JAX: the loop under
     `jax.vmap`): points (B,N,3), valid (B,N), initial_guess (B,4,4),
@@ -377,6 +394,8 @@ def gauss_newton_loop_lockstep(
     keeps its carry, as `vmap`'s frozen rows do, so its result is its own
     `gauss_newton_loop`. The loop ends once no row runs: one host read per
     iteration, whatever B. Returns (t_icp (B,4,4), iterations (B,) int32).
+    `any_active_fn` as in `gauss_newton_loop`: the loop then runs while a
+    row runs in any process that shares its collectives.
     """
     guess = initial_guess.to(torch.float32)
     src0 = transform_rows(guess, points)
@@ -387,7 +406,8 @@ def gauss_newton_loop_lockstep(
         return (it < max_iterations) & ~done
 
     def cond(src, t_icp, it, done):
-        return torch.any(running(it, done))
+        run = torch.any(running(it, done))
+        return run if any_active_fn is None else any_active_fn(run)
 
     def body(src, t_icp, it, done):
         run = running(it, done)
@@ -423,6 +443,8 @@ def align_lockstep(
     *,
     max_iterations: int,
     convergence: float,
+    linsys_fn: Optional[Callable] = None,
+    any_active_fn: Optional[Callable] = None,
 ) -> LockstepAlign:
     """`align_points_to_map` (nn_mode gather27 / pallas_fused) for B rows
     against their B stacked maps (every table of `m` with a leading B), with
@@ -431,7 +453,10 @@ def align_lockstep(
     A row whose map is empty keeps its guess with 0 iterations and 0
     correspondences, as the unbatched empty-map branch does. The final
     correspondence count is one more batched query, skipped (no launch) when
-    every map is empty."""
+    every map is empty. `linsys_fn` (default: the batched K1,
+    kernels/linsys.build_linear_systems) and `any_active_fn` as in
+    `gauss_newton_loop_lockstep`: the "pts" axis of parallel/batch.py
+    passes its block sums."""
     from kiss_icp_tpu_torch.kernels import linsys, nn27
 
     guess = initial_guess.to(torch.float32)
@@ -443,8 +468,8 @@ def align_lockstep(
 
     t_icp, iters = gauss_newton_loop_lockstep(
         points, valid, guess, max_distance, kernel_scale, present,
-        query_fn=query_fn, linsys_fn=linsys.build_linear_systems,
-        max_iterations=max_iterations, convergence=convergence)
+        query_fn=query_fn, linsys_fn=linsys_fn or linsys.build_linear_systems,
+        max_iterations=max_iterations, convergence=convergence, any_active_fn=any_active_fn)
     pose = torch.where(present[:, None, None], t_icp @ guess, guess)
     if bool(torch.any(present)):
         q = nn27.query_nearest_batched(cfg, m, transform_rows(pose, points), valid, present)

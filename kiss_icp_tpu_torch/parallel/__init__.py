@@ -1,6 +1,8 @@
-"""Many sequences at once. Only the sequence axis on one device is ported
-(`batch.py`); the map-sharded engine, the pod program and the multi-host
-driver come with ROADMAP item 16b."""
+"""Many sequences, and maps split into shards: the sequence axis
+(`batch.py`), the map-sharded engine (`sharded_map.py`,
+`sharded_engine.py`), the pod program (`pod.py`), the pts axis
+(`sharded_icp.py`) and multi-process runs (`multihost.py`), over the grid
+of `grid.py`."""
 
 from kiss_icp_tpu_torch.parallel.batch import (  # noqa: F401
     BatchedOdometry,
@@ -11,3 +13,5 @@ from kiss_icp_tpu_torch.parallel.batch import (  # noqa: F401
     make_batched_step,
     make_mesh,
 )
+from kiss_icp_tpu_torch.parallel.pod import PodOdometry, make_pod_mesh  # noqa: F401
+from kiss_icp_tpu_torch.parallel.sharded_engine import ShardedKissICP  # noqa: F401

@@ -2,9 +2,14 @@
 
 Port of `kiss_icp_tpu/parallel/batch.py`. The JAX package lays a ("seq",
 "pts") device mesh over its chips and `jax.vmap`s the frame step over the
-sequences. Here the grid is one device, 1 x 1: one CUDA card, or the CPU
-when asked. A larger grid, or a "pts" extent above 1 (which needs a psum
-across devices), raises NotImplementedError until ROADMAP item 16b.
+sequences. Here the grid (parallel/grid.py) is 1 x 1 on one device (one
+CUDA card, or the CPU when asked), or lies over the ranks of an initialised
+process group, one device a rank (`make_mesh`): "seq" splits the rows, each
+rank advancing its own rows on its own device (the inputs and the state a
+step takes are that rank's rows); "pts" > 1 sums each row's normal
+equations over the axis's blocks of the source points
+(parallel/sharded_icp.block_systems, JAX's psum), every rank of the axis
+holding the same rows.
 
 On one card the sequence axis is what fills a device that one sequence
 leaves mostly idle: `odometry.register_frame_batched` runs the B rows'
@@ -21,7 +26,6 @@ Entry points run on the card unless the caller asks for the CPU.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -29,34 +33,52 @@ import torch
 
 from kiss_icp_tpu_torch import odometry
 from kiss_icp_tpu_torch.config.schema import KISSConfig
+from kiss_icp_tpu_torch.parallel.grid import DeviceMesh, GridAxis, process_axes, world
 
 SEQ_AXIS = "seq"
 PTS_AXIS = "pts"
 
 
-@dataclasses.dataclass(frozen=True)
-class DeviceMesh:
-    """The port's device grid: ("seq", "pts") = (1, 1) over one device."""
-
-    device: torch.device
-
-    @property
-    def shape(self) -> dict:
-        return {SEQ_AXIS: 1, PTS_AXIS: 1}
-
-
 def make_mesh(n_devices: Optional[int] = None, pts_shards: Optional[int] = None,
               device=None) -> DeviceMesh:
-    """A ("seq", "pts") grid: one device (`device`, default CUDA; n_devices
-    None means one). More devices, or pts_shards > 1, raise."""
-    n_devices = 1 if n_devices is None else int(n_devices)
+    """A ("seq", "pts") grid of n_devices / pts_shards x pts_shards devices
+    (JAX `make_mesh`), one device a rank of the initialised process group,
+    or this process's one device (`device`, default CUDA) when there is
+    none. `n_devices` defaults to every rank, `pts_shards` to 1 (sequence
+    parallelism needs no collective). More devices than ranks raise a
+    ValueError, as JAX's reshape of too few devices does."""
+    n_ranks, _ = world()
+    n_devices = n_ranks if n_devices is None else int(n_devices)
     pts_shards = 1 if pts_shards is None else int(pts_shards)
-    if n_devices != 1 or pts_shards != 1:
-        raise NotImplementedError(
-            f"a {n_devices}-device grid with pts_shards={pts_shards}: only one device "
-            "(1 x 1) is ported; the multi-device seq axis and the pts axis (a psum "
-            "across devices) are ROADMAP item 16b")
-    return DeviceMesh(odometry.resolve_device(device))
+    if n_devices != n_ranks:
+        raise ValueError(f"a {n_devices}-device grid over {n_ranks} process(es): the port "
+                         "lays one device a rank of the process group (initialise "
+                         "torch.distributed with that world size)")
+    if n_devices % pts_shards:
+        raise ValueError(f"{n_devices} devices do not split into pts_shards={pts_shards}")
+    dev = odometry.resolve_device(device)
+    if n_ranks == 1:
+        return DeviceMesh(dev, ((SEQ_AXIS, GridAxis(1)), (PTS_AXIS, GridAxis(1))))
+    return DeviceMesh(dev, process_axes((SEQ_AXIS, PTS_AXIS),
+                                        (n_devices // pts_shards, pts_shards)))
+
+
+def lockstep_options(mesh: Optional[DeviceMesh]) -> dict:
+    """What the lockstep loop of `odometry.register_frame_batched` takes
+    from the grid: with a "pts" axis of P > 1, each row's normal equations
+    summed over the P blocks of its source (one batched K1 launch over this
+    rank's blocks) and the loop's trip count shared by the axis's ranks."""
+    if mesh is None or mesh.shape.get(PTS_AXIS, 1) == 1:
+        return {}
+    from kiss_icp_tpu_torch.parallel.sharded_icp import block_systems, local_points
+
+    ax = mesh.axis(PTS_AXIS)
+
+    def linsys_fn(src, neighbors, mask, kernel_scale, center, active):
+        return block_systems(ax, *(local_points(ax, t, 1) for t in (src, neighbors, mask)),
+                             kernel_scale, center, active)
+
+    return {"linsys_fn": linsys_fn, "any_active_fn": ax.any if ax.ranks > 1 else None}
 
 
 def init_batched_state(config: KISSConfig, batch: int, device=None) -> odometry.OdometryState:
@@ -72,8 +94,8 @@ def init_batched_state(config: KISSConfig, batch: int, device=None) -> odometry.
 
 
 def batched_state_sharding(mesh: DeviceMesh) -> torch.device:
-    """Where a batched state lives: the grid's one device (JAX: the batch
-    axis sharded over "seq")."""
+    """Where a batched state lives: this rank's device, holding its rows
+    (JAX: the batch axis sharded over "seq")."""
     return mesh.device
 
 
@@ -85,13 +107,15 @@ def _on(device: torch.device, *arrays):
 def make_batched_step(config: KISSConfig, mesh: Optional[DeviceMesh] = None):
     """One lockstep frame-advance of B sequences: `step(state, points
     (B,N,3), timestamps (B,N), valid (B,N)) -> (state, FrameResult)`, inputs
-    (numpy or tensors) moved to the grid's device (default: the state's).
-    The state is donated when `engine.donate_state` is set."""
+    (numpy or tensors) moved to the grid's device (default: the state's);
+    on a grid over several ranks, B is this rank's rows. The state is
+    donated when `engine.donate_state` is set."""
+    opts = lockstep_options(mesh)
 
     def step(state, points, timestamps, valid):
         dev = mesh.device if mesh is not None else state.pose.device
         return odometry.register_frame_batched(
-            config, state, *_on(dev, points, timestamps, valid))
+            config, state, *_on(dev, points, timestamps, valid), **opts)
 
     return step
 
@@ -119,6 +143,7 @@ def make_batched_chunked_step(config: KISSConfig, mesh: Optional[DeviceMesh] = N
             "parallel/pod.py (per-row decoupling with uniform collectives)")
     donate = bool(config.engine.donate_state)
     row_chunk = odometry.make_chunked_step(config, donate=True)
+    opts = lockstep_options(mesh)
 
     def chunk(state, points, timestamps, valid):
         dev = mesh.device if mesh is not None else state.pose.device
@@ -129,7 +154,7 @@ def make_batched_chunked_step(config: KISSConfig, mesh: Optional[DeviceMesh] = N
             poses = []
             for k in range(points.shape[0]):
                 state, res = odometry.register_frame_batched(
-                    config, state, points[k], timestamps[k], valid[k], donate=True)
+                    config, state, points[k], timestamps[k], valid[k], donate=True, **opts)
                 poses.append(res.pose)
             return state, torch.stack(poses)
         rows, poses = [], []
@@ -154,6 +179,7 @@ class BatchedOdometry:
         self.batch = batch
         self.mesh = mesh if mesh is not None else make_mesh(device=device)
         self.state = init_batched_state(config, batch, self.mesh.device)
+        self._opts = lockstep_options(self.mesh)
         self._cap = int(config.engine.max_points_per_frame)
         self.last_input_dropped = 0
         self.total_input_dropped = 0
@@ -181,7 +207,8 @@ class BatchedOdometry:
                 ts[i, :n] = np.asarray(t)
         self.total_input_dropped += self.last_input_dropped
         self.state, self.last_result = odometry.register_frame_batched(
-            self.config, self.state, *_on(self.mesh.device, pts, ts, valid), donate=True)
+            self.config, self.state, *_on(self.mesh.device, pts, ts, valid), donate=True,
+            **self._opts)
         return self.last_result.pose.cpu().numpy()
 
     @property

@@ -45,10 +45,9 @@ DEFAULT_PARAMETERS = {
     "convergence_criterion": 1e-4,
     "position_covariance": 0.1,
     "orientation_covariance": 0.1,
-    # Engine scale-out: shard the voxel map over this many devices. The
-    # map-sharded engine is not ported yet: > 1 raises NotImplementedError
-    # (ROADMAP item 16b). No reference analog — the rclcpp node's map is one
-    # robin_map on one host.
+    # Engine scale-out: shard the voxel map into this many shards (> 1 runs
+    # the map-sharded engine, parallel/sharded_engine.py). No reference
+    # analog — the rclcpp node's map is one robin_map on one host.
     "map_shards": 1,
     # Ground-plane attitude stabilization strength (engine.ground_align,
     # ops/ground.py; 0 = off, reference semantics). A STREAMING node is

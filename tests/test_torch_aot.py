@@ -140,11 +140,23 @@ def test_aot_version_check(step_artifact, tmp_path, changes):
 
 
 def test_map_shards_refused_at_export(tmp_path):
+    """Not refused: as JAX's `export_step`, the export with `map_shards` = 2
+    is the single-device step, over the single-device state: its frames
+    equal the live single-device step's bit for bit, and the record keeps
+    `map_shards` as JAX's does."""
     cfg = _config()
     cfg.engine.map_shards = 2
-    with pytest.raises(NotImplementedError, match="item 16"):
-        aot.save_step(tmp_path / "step.npz", cfg, device="cpu")
-    assert not (tmp_path / "step.npz").exists()
+    aot.save_step(tmp_path / "step.npz", cfg, device="cpu")
+    step, meta = aot.load_step(tmp_path / "step.npz")
+    jcfg = _config(JaxConfig)
+    jcfg.engine.map_shards = 2
+    assert meta["map_shards"] == jaot._metadata(jcfg)["map_shards"] == 2
+    state = odometry.init_state(cfg, device="cpu")
+    live = odometry.KissICP(_config(), device="cpu")
+    for f in _scans(k=2):
+        state, res = step(state, *_torch(_pad(f)))
+        live.register_frame_lazy(f)
+        np.testing.assert_array_equal(res.pose.double().numpy(), live.last_pose)
 
 
 def test_jax_artifact_is_refused(jax_artifact):

@@ -239,8 +239,13 @@ def test_step_without_donation_leaves_the_stacked_state():
 
 
 def test_larger_grids_raise():
+    """Without a process group this process is the only device: a larger
+    grid raises JAX's kind of error (JAX's reshape of too few devices, here
+    asked of its 8 virtual ones). Grids over ranks: test_torch_multihost.py."""
+    with pytest.raises(ValueError):
+        jbatch.make_mesh(16)
     for args in ((2,), (1, 2), (8, 2)):
-        with pytest.raises(NotImplementedError, match="item 16b"):
+        with pytest.raises(ValueError):
             pbatch.make_mesh(*args, device="cpu")
     mesh = pbatch.make_mesh(device="cpu")
     assert mesh.shape == {"seq": 1, "pts": 1}
@@ -347,3 +352,30 @@ def test_linsys_batched_operator(n):
             assert torch.equal(x[b], y)
     assert not bool(got.jtj[2].any()) and not bool(got.jtr[2].any())
     assert int(got.num_correspondences[2]) == 0
+
+
+def test_pts_axis_matches_jax():
+    """A "pts" axis of 2 in one process (two local blocks of the source):
+    the batched step against JAX's on its (1 x 2) ("seq", "pts") mesh at
+    the batched tolerance, equal iterations, and against the 1 x 1 grid
+    within 1e-5."""
+    from kiss_icp_tpu_torch.parallel.grid import DeviceMesh, GridAxis
+
+    cfg, jcfg = _tiny(KISSConfig), _tiny(JaxConfig)
+    pts, ts, valid = _drive()
+    mesh = DeviceMesh(torch.device("cpu"), (("seq", GridAxis(1)), ("pts", GridAxis(2))))
+    step = pbatch.make_batched_step(cfg, mesh)
+    state = pbatch.init_batched_state(cfg, B, "cpu")
+    got, iters = [], []
+    for i in range(K):
+        state, res = step(state, pts[i], ts[i], valid[i])
+        got.append(res.pose.numpy())
+        iters.append(res.num_iterations.numpy())
+    jstep = jbatch.make_batched_step(jcfg, jbatch.make_mesh(2, pts_shards=2))
+    jstate = jbatch.init_batched_state(jcfg, B)
+    for i in range(K):
+        jstate, jres = jstep(jstate, pts[i], ts[i], valid[i])
+        np.testing.assert_allclose(got[i], np.asarray(jres.pose), atol=ATOL_JAX)
+        np.testing.assert_array_equal(iters[i], np.asarray(jres.num_iterations))
+    one, _, _ = _port_frames(cfg, pts, ts, valid)
+    np.testing.assert_allclose(np.stack(got), one, atol=ATOL_ROW)

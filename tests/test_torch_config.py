@@ -2,8 +2,8 @@
 
 One YAML file must drive both packages: `config_to_dict` is compared exactly
 (same keys, same values, same types) for the defaults and both shipped YAML
-files. Every option runs on the port but `engine.map_shards > 1`, which it
-refuses, loudly, naming the ROADMAP item that brings it.
+files. Every option runs on the port, `engine.map_shards > 1` included (the
+map-sharded engine), and is accepted as JAX accepts it.
 """
 
 from pathlib import Path
@@ -13,8 +13,7 @@ import torch
 
 from kiss_icp_tpu.config import load_config as jax_load_config
 from kiss_icp_tpu.config import config_to_dict as jax_to_dict
-from kiss_icp_tpu_torch.config import (check_supported, config_to_dict,
-                                       load_config)
+from kiss_icp_tpu_torch.config import config_from_dict, config_to_dict, load_config
 from kiss_icp_tpu_torch.config.parser import ENV_PREFIX
 
 torch.set_num_threads(1)
@@ -42,10 +41,14 @@ def test_env_prefix(monkeypatch):
 
 @pytest.mark.parametrize("shards", [2, 4])
 def test_unported_options_raise(shards):
+    """No option is refused any more: `engine.map_shards > 1` is accepted as
+    JAX accepts it (the same dict through both packages' config)."""
     cfg = load_config(None)
     cfg.engine.map_shards = shards
-    with pytest.raises(NotImplementedError, match="item 16"):
-        check_supported(cfg)
+    jcfg = jax_load_config(None)
+    jcfg.engine.map_shards = shards
+    assert config_to_dict(cfg) == jax_to_dict(jcfg)
+    assert config_from_dict(config_to_dict(cfg)).engine.map_shards == shards
 
 
 @pytest.mark.parametrize("key,value", [
@@ -58,4 +61,6 @@ def test_unported_options_raise(shards):
 def test_compat_options_accepted(key, value):
     cfg = load_config(None)
     setattr(cfg.engine, key, value)
-    check_supported(cfg)
+    jcfg = jax_load_config(None)
+    setattr(jcfg.engine, key, value)
+    assert config_to_dict(cfg) == jax_to_dict(jcfg)

@@ -25,7 +25,11 @@ held bit for bit to the unbatched kernel row by row, on the hand-made maps
 too; an inactive row does no work and gives the defined empty answer; the
 batched plain versions equal the kernels as the unbatched ones do; and the
 lockstep batched step on the card launches each kernel once per lockstep
-iteration and matches the same step on the CPU.
+iteration and matches the same step on the CPU. The map-sharded step's
+calls (the D shard tables as rows, one source expanded over them, the D
+stripes) are bit-equal row by row to the unbatched kernel, and a 3-frame
+map-sharded drive on the card launches each kernel once per GN iteration
+for all shards and matches the CPU within 1e-5 m.
 """
 
 import numpy as np
@@ -35,7 +39,7 @@ import torch
 from kiss_icp_tpu_torch.config.schema import KISSConfig
 from kiss_icp_tpu_torch.kernels import cases, linsys, nn27
 from kiss_icp_tpu_torch.ops import hash_map as hm
-from kiss_icp_tpu_torch.ops import registration
+from kiss_icp_tpu_torch.ops import registration, se3
 
 pytestmark = pytest.mark.gpu
 
@@ -666,3 +670,97 @@ def test_lockstep_step_on_card_matches_cpu_and_launches_once_per_iteration(cuda)
     np.testing.assert_allclose(pc, pp, atol=1e-4)
     lockstep = int(ic.max(axis=1).sum())
     assert (c1, c2) == (lockstep, lockstep + k - 1) and lockstep > 0
+
+
+def _sharded_config(shards):
+    cfg = KISSConfig()
+    cfg.data.max_range = 50.0
+    cfg.data.min_range = 1.0
+    cfg.mapping.voxel_size = 0.5
+    cfg.engine.max_points_per_frame = 4096
+    cfg.engine.frame_capacity = 4096
+    cfg.engine.source_capacity = 1024
+    cfg.engine.map_capacity_log2 = 15
+    cfg.engine.map_shards = shards
+    cfg.registration.max_num_iterations = 20
+    return cfg
+
+
+def _sharded_scans(k=3, n=4000, seed=6):
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(-30, 30, (n, 3)).astype(np.float32)
+    return [base + np.float32([0.3, 0.05, 0.0]) * i for i in range(k)]
+
+
+@pytest.mark.parametrize("storage", ["f32", "u16"])
+def test_batched_kernels_over_shard_rows_bit_equal(cuda, storage):
+    """The map-sharded step's kernel calls (parallel/sharded_map.py): the
+    batched K2 with the D = 4 shard tables as rows and one source expanded
+    over them, the batched K1 over the D stripes. The expanded (stride-0)
+    source is refused by the wrappers as it stands; made contiguous, each
+    row is bit-equal to the unbatched kernel on that shard and to the plain
+    versions (K1 within its tolerance)."""
+    from kiss_icp_tpu_torch import odometry
+    from kiss_icp_tpu_torch.parallel import sharded_map as psm
+
+    cfg = _sharded_config(4)
+    cfg.engine.map_storage = storage
+    icp = odometry.create_odometry(cfg, device=cuda)
+    for f in _sharded_scans(2):
+        icp.register_frame(f)
+    d, mcfg = 4, psm.local_map_config(cfg, icp.mesh)
+    rows = psm.shard_rows(icp.state, d)
+    res = icp.last_result
+    src = se3.transform(icp.state.pose, res.source_points)
+    s = src.shape[0]
+    expanded = src.expand(d, s, 3)
+    valid = res.source_valid.expand(d, s)
+    active = torch.ones(d, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        nn27.query_nearest_batched(mcfg, rows, expanded, valid.contiguous(), active)
+    q, v = expanded.contiguous(), valid.contiguous()
+    shard_maps = [hm.VoxelMap(*(t[i] for t in rows[:4]), None, None, None) for i in range(d)]
+    got = _assert_nn_rows(mcfg, rows, shard_maps, q, v, active)
+    assert all(int(got.found[i].sum()) > 0 for i in range(d))
+    stripe = (torch.arange(s, device=cuda) % d)[None, :] == torch.arange(d, device=cuda)[:, None]
+    corr = got.found & (got.distances < 3.0 * res.sigma) & stripe
+    center = icp.state.pose[:3, 3].expand(d, 3).contiguous()
+    scale = res.sigma.expand(d).contiguous()
+    before = linsys.build_linear_system.launches
+    sys_ = linsys.build_linear_systems(q, got.neighbors, corr, scale, center, active)
+    torch.cuda.synchronize()
+    assert linsys.build_linear_system.launches == before + 1
+    plain = linsys.plain_linsys_batched(q, got.neighbors, corr, scale, center, active)
+    for i in range(d):
+        one = linsys.build_linear_system(q[i], got.neighbors[i], corr[i], scale[i], center[i])
+        assert torch.equal(sys_.jtj[i], one.jtj) and torch.equal(sys_.jtr[i], one.jtr)
+        torch.testing.assert_close(sys_.jtj[i], plain[0][i], rtol=2e-5, atol=1e-3)
+        assert int(sys_.num_correspondences[i]) == int(plain[2][i])
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_drive_on_card_matches_cpu_and_launches_once_per_iteration(cuda, shards):
+    """3 frames through `create_odometry` with map_shards = D on the card
+    and on the CPU: equal iterations, poses within 1e-5 m; on the card K1
+    and K2 launch once per GN iteration for all D shards, K2 once more for
+    each frame's final count (none on the first frame: empty map)."""
+    from kiss_icp_tpu_torch import odometry
+    from kiss_icp_tpu_torch.parallel.sharded_engine import ShardedKissICP
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        icp = odometry.create_odometry(_sharded_config(shards), device=dev)
+        assert isinstance(icp, ShardedKissICP)
+        k1, k2 = linsys.build_linear_system.launches, nn27.query_nearest.launches
+        out = []
+        for f in _sharded_scans():
+            icp.register_frame(f)
+            out.append((icp.last_pose, int(icp.last_result.num_iterations)))
+        runs[dev] = out, (linsys.build_linear_system.launches - k1,
+                          nn27.query_nearest.launches - k2)
+    (gpu, (c1, c2)), (cpu, _) = runs["cuda"], runs["cpu"]
+    for (pg, ig), (pc, ic) in zip(gpu, cpu):
+        np.testing.assert_allclose(pg, pc, atol=1e-5)
+        assert ig == ic
+    iters = sum(i for _, i in gpu)
+    assert iters > 0 and (c1, c2) == (iters, iters + len(gpu) - 1)

@@ -134,12 +134,18 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_unported_options_refused_at_construction():
-    cfg = _small(KISSConfig)
-    cfg.engine.map_shards = 2
-    with pytest.raises(NotImplementedError, match="item 16"):
-        odometry.KissICP(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        odometry.create_odometry(cfg, device="cpu")
+    """Nothing is refused: with `engine.map_shards = 2`, `create_odometry`
+    returns the map-sharded engine, as JAX's does, and KissICP itself is the
+    single-device engine whatever map_shards says (JAX's KissICP too)."""
+    from kiss_icp_tpu.parallel.sharded_engine import ShardedKissICP as JaxSharded
+    from kiss_icp_tpu_torch.parallel.sharded_engine import ShardedKissICP
+
+    cfg, jcfg = _small(KISSConfig), _small(JaxConfig)
+    cfg.engine.map_shards = jcfg.engine.map_shards = 2
+    assert isinstance(odometry.create_odometry(cfg, device="cpu"), ShardedKissICP)
+    assert isinstance(jodo.create_odometry(jcfg), JaxSharded)
+    single = odometry.KissICP(cfg, device="cpu")
+    assert type(single) is odometry.KissICP and single.state.map.total_points.shape == ()
 
 
 def test_rebase_trigger_raises_instead_of_drifting_on():

@@ -383,5 +383,18 @@ def test_node_default_device_needs_a_gpu(ros_env, monkeypatch):
 
 
 def test_node_map_shards_raise_naming_item_16(ros_env):
-    with pytest.raises(NotImplementedError, match="item 16"):
-        _node(odometry_server, {"map_shards": 2})
+    """`map_shards` = 2 no longer raises: both nodes run their map-sharded
+    engine on the same messages and publish the same poses."""
+    from kiss_icp_tpu_torch.parallel.sharded_engine import ShardedKissICP
+
+    node, jnode = _stream({"map_shards": 2, "publish_debug_clouds": True},
+                          lambda i, p: shell._cloud_msg(p, with_stamps=True),
+                          shell._scan_frames(3))
+    assert isinstance(node.odometry, ShardedKissICP)
+    assert type(jnode.odometry).__name__ == "ShardedKissICP"
+    assert node.odometry.mesh.shape["map"] == 2 and node.odometry.device.type == "cpu"
+    odom, jodom = _pub(node, "kiss/odometry").msgs, _pub(jnode, "kiss/odometry").msgs
+    assert len(odom) == len(jodom) == 3
+    for m, jm in zip(odom, jodom):
+        np.testing.assert_allclose(_odom_pose(m), _odom_pose(jm), rtol=0, atol=POSE_ATOL)
+    assert len(_pub(node, "kiss/local_map").msgs[-1].data) > 0
