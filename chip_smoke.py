@@ -41,7 +41,7 @@ non-zero without printing the final result line):
  12. aot       io/aot.py at the drive's full width: the per-frame artifact
                (save_step on the card, load_step) over the drive's 12 scans,
                bit-identical to the drive with its K1 and K2 launches; the
-               chunked artifact (K = 4, 3 chunks) bit-identical to the live
+               chunked artifact (K = 2, 6 chunks) bit-identical to the live
                chunked step; with donate_state false, one step of the live
                step and of its artifact leaves the state it started from
                bit-identical
@@ -83,6 +83,15 @@ non-zero without printing the final result line):
  17. tools     tools/op_breakdown over 6 of the drive's scans on the card (its
                per-stage table, the kernels as the profiler saw them) and
                tools/capacity_plan over the drive's 12 scans
+ 18. bench     the port's bench (`python -m kiss_icp_tpu_torch.tools.bench`) as a
+               subprocess on the card, with a 48-frame soak and a K = 2
+               chunked artifact: it exits 0 with every child it spawned
+               finished (none failed or cut at its timeout, every ab variant
+               timed); its last line carries every headline field above 0,
+               the resume and the re-base hold (the re-based trajectory is
+               the straight one shifted by exactly the offset), the headline
+               child has 0 drops, a max error under the verify gate, and
+               K1/K2 launches equal to its GN iterations and final counts
 Each mode and option is driven with the kernels' launch counters set to 0
 just before it and read just after. Then one JSON line of per-kernel
 numbers, and the result line
@@ -96,6 +105,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -581,9 +591,11 @@ def main() -> int:
         mode_launches.update(shard_launches)
         t4 = time.perf_counter()
         phase_tools(cfg, scans, ds, smi)
+        t5 = time.perf_counter()
+        mode_launches.update(phase_bench(Path(tmp), smi))
         print(f"time: phase loaders {t1 - t0:.1f} s, phase ros {t2 - t1:.1f} s, phase batch "
               f"{t3 - t2:.1f} s, phase shards {t4 - t3:.1f} s, phase tools "
-              f"{time.perf_counter() - t4:.1f} s, the script "
+              f"{t5 - t4:.1f} s, phase bench {time.perf_counter() - t5:.1f} s, the script "
               f"{time.perf_counter() - t_start:.1f} s (host clock); on {smi}", flush=True)
     for k, key in zip(kernels, ("k1", "k2")):
         k["launches_cli"] = {run: cli_launches[run][key] for run in ("A", "B")}
@@ -1092,8 +1104,11 @@ def phase_aot(cfg, scans, drive: dict, tmp: Path, smi: str) -> dict:
           flush=True)
     del step, state
 
-    # Chunked: K = 4, frames 0-11 as 3 chunks, against the live chunked step.
-    k = 4
+    # Chunked: K = 2, frames 0-11 as 6 chunks, against the live chunked step.
+    # The export's time grows with K (~14 s a frame): K = 4 would hold a
+    # 4-frame unrolled body but cost ~35 s more, which the script's 900 s
+    # target cannot spare since phase "bench" joined.
+    k = 2
     step, made_line = made("chunked", chunk=k)
     live = make_chunked_step(cfg)
     lstate, astate = init_state(cfg), init_state(cfg)
@@ -1113,7 +1128,8 @@ def phase_aot(cfg, scans, drive: dict, tmp: Path, smi: str) -> dict:
         check(torch.equal(a, b), f"aot chunked: {field} differs from the live chunked step")
     for field, a, b in zip(astate.map._fields, astate.map, lstate.map):
         check(torch.equal(_bits(a), _bits(b)), f"aot chunked: map {field} differs")
-    print(f"aot chunked: K = {k} (unrolled), {made_line}; 3 chunks bit-identical to the "
+    print(f"aot chunked: K = {k} (unrolled), {made_line}; {N_FRAMES // k} chunks "
+          f"bit-identical to the "
           f"live chunked step in poses, iterations, sigmas, correspondences and the map; "
           f"launches {out['aot chunked']}; on {smi}", flush=True)
     del step, astate
@@ -1913,6 +1929,111 @@ def phase_tools(cfg, scans, ds, smi: str) -> None:
                                                        "source_capacity", "map_capacity_log2")}
     print(f"tools capacity_plan: the drive's {len(frames)} scans with ground truth -> "
           f"{json.dumps(plan.as_dict())}; the drive runs with {configured}", flush=True)
+
+
+# The bench phase: the parent's budget (its soak needs 500 s left after the
+# headline child), the soak's length, and the chunked artifact's K (its
+# export grows with K).
+BENCH_ENV = {"KISS_BENCH_BUDGET_S": "640", "KISS_BENCH_SOAK_FRAMES": "48"}
+BENCH_ARGV = ("--aot-chunk", "2")
+BENCH_TIMEOUT_S = 700
+# The robust child's drive on a cold 240-frame cache (this phase renders
+# none): 24 frames of the 30-frame drive.
+BENCH_ROBUST_FRAMES = 24
+# The verify drive's gate on the headline child's 14 frames.
+BENCH_MAX_ERR_M = 0.7
+BENCH_POSITIVE = ("value", "median_fps", "steady_state_fps", "batched_seq_fps",
+                  "streaming_p50_ms", "aot_fps", "aot_chunked_fps")
+
+
+def phase_bench(tmp: Path, smi: str) -> dict:
+    """18. The port's bench on the card, as a user runs it: the parent as a
+    subprocess (each child its own process) over the bench's own drive. Its
+    scan caches (14, 30 and 48 frames: frame i of the drive depends on the
+    drive's length, so no length can reuse another's frames) are rendered
+    here first, across the host's cores, so that the parent's soak gate
+    sees them warm. Returns the children's K1/K2 launches."""
+    from kiss_icp_tpu_torch.tools import bench
+
+    t0 = time.perf_counter()
+    cache = tmp / "bench_cache"
+    cache.mkdir()
+    env = dict(os.environ, KISS_BENCH_CACHE_DIR=str(cache),
+               KISS_BENCH_LOG_DIR=str(tmp / "bench_logs"), **BENCH_ENV)
+    before = os.environ.get("KISS_BENCH_CACHE_DIR")
+    os.environ["KISS_BENCH_CACHE_DIR"] = str(cache)
+    try:
+        for n in (bench.N_FRAMES, 30, int(BENCH_ENV["KISS_BENCH_SOAK_FRAMES"])):
+            bench._scans(bench._config(), n)
+    finally:
+        if before is None:
+            del os.environ["KISS_BENCH_CACHE_DIR"]
+        else:
+            os.environ["KISS_BENCH_CACHE_DIR"] = before
+    render_s = time.perf_counter() - t0
+    proc = subprocess.run([sys.executable, "-m", "kiss_icp_tpu_torch.tools.bench", *BENCH_ARGV],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    for ln in proc.stderr.splitlines():
+        if ln.startswith(("card:", "round ", "soak fps", "streaming:", "aot ", "robust:",
+                          "bench done", "[")):
+            print(f"bench | {ln}", flush=True)
+    check(proc.returncode == 0, f"bench: rc={proc.returncode}\n{proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    for key in BENCH_POSITIVE:
+        check(isinstance(line.get(key), (int, float)) and line[key] > 0,
+              f"bench: {key} = {line.get(key)} in the last line {line}")
+    check(line.get("resume_equal") is True and line.get("rebase_ok") is True,
+          f"bench: resume_equal / rebase_ok not true in {line}")
+    summary = json.loads((tmp / "bench_logs" / "summary.json").read_text())
+    check(summary["card"] == smi, f"bench: summary card {summary['card']!r}, not {smi!r}")
+    # Every child the parent spawned finished with its own result: none
+    # failed, none was cut at its timeout.
+    check(summary["failed"] == {}, f"bench: children failed: {summary['failed']}")
+    for mode in summary["child_wall_s"]:
+        got = summary["headline" if mode == "chunked" else mode]
+        check(isinstance(got, dict) and got.get("mode") == mode and not got.get("timed_out"),
+              f"bench: child {mode} gave {got}")
+    ab = summary["ab"]
+    check(all(isinstance(ab.get(v), (int, float)) and ab[v] > 0 for v in bench.AB_VARIANTS),
+          f"bench ab: not every variant of {list(bench.AB_VARIANTS)} above 0: {ab}")
+    robust = summary["robust"]
+    check(robust["n_frames"] == BENCH_ROBUST_FRAMES and robust["rebase_parity_m"] == 0.0,
+          f"bench robust: {robust['n_frames']} frames (expected {BENCH_ROBUST_FRAMES}), the "
+          f"re-based trajectory {robust['rebase_parity_m']} m from the straight one shifted")
+    head, soak, aot = summary["headline"], summary["soak"], summary["aot"]
+    n = bench.N_FRAMES
+    # One K1 launch a GN iteration; K2 the same plus one final count a frame
+    # but the first (its map is empty).
+    for label, child, frames, iters in (("chunked", head, n, head["gn_iterations"]),
+                                        ("soak", soak, soak["n_frames"],
+                                         soak["total_gn_iterations"])):
+        check(child["launches"] == {"k1": iters, "k2": iters + frames - 1},
+              f"bench {label}: launches {child['launches']} for {iters} GN iterations "
+              f"over {frames} frames")
+    check(head["dropped"] == 0 and head["max_err_m"] < BENCH_MAX_ERR_M,
+          f"bench chunked: drops {head['dropped']}, max error {head['max_err_m']} m")
+    check(soak["dropped"] == 0 and soak["oob"] == 0,
+          f"bench soak: drops {soak['dropped']}, out-of-envelope points {soak['oob']}")
+    if bench.peak_hbm_bytes_per_s(summary["card"].split(",")[0]) is not None:
+        check(line.get("hbm_utilization_pct", 0) > 0,
+              f"bench: no hbm_utilization_pct for a card of known peak in {line}")
+    check(aot["chunked_identical"] and aot["step_identical"],
+          f"bench aot: artifacts not bit-identical to the live step: {aot}")
+    print(f"bench: `python -m kiss_icp_tpu_torch.tools.bench {' '.join(BENCH_ARGV)}` with "
+          f"{BENCH_ENV}: last line "
+          f"{json.dumps(line)}; chunked {head['rounds']} rounds (best {head['fps']}, median "
+          f"{head['median_fps']}, spread {head['spread_pct']} %), max_err {head['max_err_m']} m, "
+          f"launches {head['launches']} = {head['gn_iterations']} GN iterations (+{n - 1} final "
+          f"counts); soak {soak['n_frames']} frames, map {soak['map_points']} points, drops "
+          f"{soak['dropped']}, oob {soak['oob']}, launches {soak['launches']}; ab {ab}; robust "
+          f"{robust['n_frames']} frames, re-base parity {robust['rebase_parity_m']} m; caches "
+          f"rendered "
+          f"in {render_s:.1f} s; child wall s {summary['child_wall_s']}; on {smi}", flush=True)
+    batched = summary["batched"]
+    return {"bench chunked": head["launches"], "bench soak": soak["launches"],
+            "bench batched vmap": batched["launches_vmap"],
+            "bench batched map": batched["launches_map"]}
 
 
 def fake_ros_modules(overrides: dict, on_spin):

@@ -13,6 +13,12 @@ host's cores), so sequence-frames/s cannot improve with N. A FLAT curve
 means the multi-process runner adds no overhead (no collective, no host
 sync beyond the pose gather); it is NOT a hardware scaling measurement.
 
+`--drive` feeds windows of the port's bench drive (tools/bench.py's
+240-frame scan cache: real rendered scans, one 60-frame offset per
+sequence, stride-subsampled to the child config's 4096 points) instead of
+the random cloud, when that cache is warm; a cold cache runs the random
+cloud, and the row says which (`"drive"`).
+
 Each process count runs in fresh child processes (the process group is
 fixed at start-up), under `--timeout` seconds; a child that fails or times
 out fails the run (exit code 1). Output: one JSON line per run, with each
@@ -20,7 +26,7 @@ rank's device and kernel launches, and a summary JSON (also written to
 `--out`), with the cross-run pose parity.
 
 Usage:  python -m kiss_icp_tpu_torch.tools.scaling_bench [--out FILE]
-        [--batch 8] [--frames 12] [--devices 1,2,4] [--pod]
+        [--batch 8] [--frames 12] [--devices 1,2,4] [--pod] [--drive]
         [--device cuda|cpu] [--timeout 600]
 """
 
@@ -69,7 +75,35 @@ def _frames(b, k, n, seed=0):
     return pts
 
 
-def child(batch: int, k: int, use_pod: bool, device: str) -> dict:
+def _drive_frames(b, k, n):
+    """(K, B, n, 3) points, (K, B, n) stamps and valid flags: windows of the
+    bench's cached 240-frame drive, sequence i from frame 60 i, each scan
+    stride-subsampled to n points (the JAX tool's windows). None when that
+    cache is cold."""
+    from kiss_icp_tpu_torch.odometry import subsample_to_capacity
+    from kiss_icp_tpu_torch.tools import bench
+
+    if not bench._scan_cache_ready(bench._config(), 240):
+        return None
+    _, cpts, cts, cvalid = bench._scans(bench._config(), 240)
+    pts = np.zeros((k, b, n, 3), np.float32)
+    ts = np.zeros((k, b, n), np.float32)
+    valid = np.zeros((k, b, n), bool)
+    for i in range(b):
+        o = (60 * i) % (cpts.shape[0] - k)
+        for j in range(k):
+            full = cpts[o + j][cvalid[o + j]]
+            stamps = cts[o + j][cvalid[o + j]]
+            f, t, _ = subsample_to_capacity(full, stamps, n)
+            m = len(f)
+            pts[j, i, :m] = f
+            if t is not None and len(t) == m:
+                ts[j, i, :m] = t
+            valid[j, i, :m] = True
+    return pts, ts, valid
+
+
+def child(batch: int, k: int, use_pod: bool, device: str, use_drive: bool = False) -> dict:
     """One rank: drive the B sequences' K frames (this rank's share) once to
     warm up, then three times timed between barriers. Returns the row
     (rank 0's is the run's)."""
@@ -83,22 +117,33 @@ def child(batch: int, k: int, use_pod: bool, device: str) -> dict:
     n_proc, rank = spec.num_processes, spec.process_id
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // n_proc))
     cfg = _child_config()
-    pts = _frames(batch, k, cfg.engine.max_points_per_frame)
+    n = cfg.engine.max_points_per_frame
+    drive = _drive_frames(batch, k, n) if use_drive else None
+    if drive is None:
+        pts = _frames(batch, k, n)
+        frames = [[pts[j, i] for j in range(k)] for i in range(batch)]
+        stamps = None
+    else:
+        pts, ts, valid = drive
+        frames = [[pts[j, i][valid[j, i]] for j in range(k)] for i in range(batch)]
+        stamps = [[ts[j, i][valid[j, i]] for j in range(k)] for i in range(batch)]
     lb = batch // n_proc
-    mine = slice(rank * lb, (rank + 1) * lb)
+    mine = range(rank * lb, (rank + 1) * lb)
 
     if use_pod:
         from kiss_icp_tpu_torch.parallel import pod
 
         def run():
             po = pod.PodOdometry(cfg, batch, mesh=pod.make_pod_mesh(n_proc, 2, device))
-            return po.register_chunks([list(pts[:, i]) for i in range(batch)])[:, -1]
+            return po.register_chunks(frames, stamps)[:, -1]
     else:
         def run():
             mh = multihost.MultihostBatchedOdometry(cfg, batch, device=device)
             poses = None
             for j in range(k):
-                poses = mh.register_frames(list(pts[j, mine]))
+                poses = mh.register_frames(
+                    [frames[i][j] for i in mine],
+                    None if stamps is None else [stamps[i][j] for i in mine])
             return poses
 
     def barrier():
@@ -129,7 +174,7 @@ def child(batch: int, k: int, use_pod: bool, device: str) -> dict:
         "seq_frames_per_s": best,
         "compile_s": compile_s,
         "program": "pod(seq,map)" if use_pod else "batched(seq)",
-        "drive": False,
+        "drive": drive is not None,
         "device": str(dev),
         "device_name": name,
         "launches_rank0": launches,
@@ -154,6 +199,8 @@ def run_processes(n: int, args) -> dict:
            "--batch", str(args.batch), "--frames", str(args.frames), "--device", args.device]
     if args.pod:
         cmd.append("--pod")
+    if args.drive:
+        cmd.append("--drive")
     procs = []
     for rank in range(n):
         env = dict(os.environ, **{_CHILD_ENV: str(n), "KISS_NUM_PROCESSES": str(n),
@@ -197,13 +244,16 @@ def main(argv=None) -> int:
                     help="process counts (the processes share one device)")
     ap.add_argument("--pod", action="store_true",
                     help="measure the composed (seq, map) pod program (map axis 2)")
+    ap.add_argument("--drive", action="store_true",
+                    help="windows of the bench's cached 240-frame drive (real scans) "
+                         "instead of the random cloud, when that cache is warm")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--timeout", type=float, default=600.0,
                     help="seconds a run's processes may take together")
     args = ap.parse_args(argv)
 
     if _CHILD_ENV in os.environ:
-        out = child(args.batch, args.frames, args.pod, args.device)
+        out = child(args.batch, args.frames, args.pod, args.device, args.drive)
         if int(os.environ.get("KISS_PROCESS_ID", "0")) == 0:
             print(json.dumps(out), flush=True)
         return 0

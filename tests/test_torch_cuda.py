@@ -29,7 +29,10 @@ iteration and matches the same step on the CPU. The map-sharded step's
 calls (the D shard tables as rows, one source expanded over them, the D
 stripes) are bit-equal row by row to the unbatched kernel, and a 3-frame
 map-sharded drive on the card launches each kernel once per GN iteration
-for all shards and matches the CPU within 1e-5 m.
+for all shards and matches the CPU within 1e-5 m. The port's bench
+(tools/bench.py) headline child runs at a small config on the card and on
+the CPU: the same iterations, poses within 1e-4 m, and one K1 launch a GN
+iteration.
 """
 
 import numpy as np
@@ -764,3 +767,41 @@ def test_sharded_drive_on_card_matches_cpu_and_launches_once_per_iteration(cuda,
         assert ig == ic
     iters = sum(i for _, i in gpu)
     assert iters > 0 and (c1, c2) == (iters, iters + len(gpu) - 1)
+
+
+def test_bench_chunked_child_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """The port's bench (tools/bench.py) headline child at a small config
+    (16 x 128 beams, 4096 points, 2^14 slots, 4 frames) on the card and on
+    the CPU: equal iterations, poses within 1e-4 m; on the card one round
+    launches K1 once per GN iteration and K2 once more a frame but the
+    first (empty map)."""
+    from kiss_icp_tpu_torch.datasets.synthetic import SyntheticDataset
+    from kiss_icp_tpu_torch.tools import bench
+
+    make = bench._config
+
+    def small(*args, **kwargs):
+        cfg = make(*args, **kwargs)
+        cfg.engine.max_points_per_frame = cfg.engine.frame_capacity = 4096
+        cfg.engine.source_capacity = 1024
+        cfg.engine.map_capacity_log2 = 14
+        return cfg
+
+    def render(n, cap):  # in-process: worker processes would not see these patches
+        gt = SyntheticDataset(n_scans=n, **bench.DRIVE).gt_poses[:n]
+        return (gt, *bench._render_block(bench.DRIVE, n, range(n), cap))
+
+    monkeypatch.setenv("KISS_BENCH_CACHE_DIR", str(tmp_path))
+    monkeypatch.setattr(bench, "_render", render)
+    monkeypatch.setattr(bench, "_config", small)
+    monkeypatch.setattr(bench, "DRIVE", dict(bench.DRIVE, n_beams=16, n_azimuth=128))
+    monkeypatch.setattr(bench, "N_FRAMES", 4)
+    monkeypatch.setattr(bench, "CHUNKED_ROUNDS", bench.MIN_ROUNDS)
+    seen = {}
+    out = {dev: bench.child_chunked(dev, observe=lambda mode, dev=dev, **a: seen.update({dev: a}))
+           for dev in ("cuda", "cpu")}
+    np.testing.assert_allclose(seen["cuda"]["poses"], seen["cpu"]["poses"], atol=1e-4)
+    np.testing.assert_array_equal(seen["cuda"]["iterations"], seen["cpu"]["iterations"])
+    iters = out["cuda"]["gn_iterations"]
+    assert iters > 0 and out["cuda"]["launches"] == {"k1": iters, "k2": iters + 3}
+    assert out["cuda"]["dropped"] == 0 and out["cpu"]["launches"] == {"k1": 0, "k2": 0}

@@ -1,5 +1,6 @@
 """The port stands alone: no module of kiss_icp_tpu_torch, and not
-chip_smoke.py, imports JAX or the JAX package; importing every port module
+chip_smoke.py, imports JAX, the JAX package or the root bench.py (the
+port's bench is tools/bench.py); importing every port module
 builds nothing and needs no card; chip_smoke.py refuses to run without one.
 """
 
@@ -13,7 +14,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "kiss_icp_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "kiss_icp_tpu")
+FORBIDDEN = ("jax", "jaxlib", "kiss_icp_tpu", "bench")  # bench: the root bench.py
 
 
 def _port_files():
