@@ -52,12 +52,23 @@ non-zero without printing the final result line):
                64 x 1024 column-major Ouster scans (stamps made by the
                loader), the verify gates; each loader returns what was
                written, no drops
- 14. ros       the port's ROS 2 node (ros/odometry_server.main) under a
+ 14. install   the port as a user installs it: the wheel built offline
+               (pip wheel --no-deps --no-build-isolation) from a copy of
+               the checkout, installed with --target into a directory
+               marked read-only; its console script kiss_icp_tpu_torch_pipeline
+               with the shipped config/basic.yaml at its default device over
+               the drive's 12 scans written as a KITTI sequence, from outside
+               the checkout with only the install on PYTHONPATH and a fresh
+               XDG_CACHE_HOME: nvcc builds K1 and K2 from the wheel's sources
+               into that cache, nothing is written into the install, K1 and
+               K2 launch, the poses are bit-identical to the same command run
+               from the checkout at the same time, the verify gates hold
+ 15. ros       the port's ROS 2 node (ros/odometry_server.main) under a
                minimal fake of rclpy and the message modules, its device left
                at the default: the drive's 12 scans published as PointCloud2
                records with a float32 `t` field, 12 odometry and TF messages,
                the drive's poses and launches, the shutdown checkpoint loads
- 15. batch     the sequence axis (parallel/batch.py): the drive's scans as 4
+ 16. batch     the sequence axis (parallel/batch.py): the drive's scans as 4
                rows turned b x 90 deg about z. The batched K1 and K2 at the
                lockstep path's shapes, bit-equal to the unbatched kernels row
                by row, against their plain versions, an inactive row's empty
@@ -69,7 +80,7 @@ non-zero without printing the final result line):
                frame); the "map" chunked mode, launches summed over rows;
                ms per lockstep frame, sequence-frames/s, launches and peak
                memory at B = 1, 4, 8
- 16. shards    the rest of parallel/: the drive's scans through create_odometry
+ 17. shards    the rest of parallel/: the drive's scans through create_odometry
                with map_shards = 2 and 4 (within 5e-4 m of the drive, the
                verify gates, one batched K1 and one batched K2 launch per GN
                iteration for all shards, the batched kernels over the shard
@@ -80,11 +91,11 @@ non-zero without printing the final result line):
                within 1e-5 m of its own map-sharded drive); the pts axis (2
                stripes against the single align); tools/scaling_bench.py at 1
                and 2 processes on this card, against one BatchedOdometry
- 17. tools     tools/op_breakdown over 6 of the drive's scans on the card (its
+ 18. tools     tools/op_breakdown over 6 of the drive's scans on the card (its
                per-stage table, the kernels as the profiler saw them) and
                tools/capacity_plan over the drive's 12 scans
- 18. bench     the port's bench (`python -m kiss_icp_tpu_torch.tools.bench`) as a
-               subprocess on the card, with a 48-frame soak and a K = 2
+ 19. bench     the port's bench (`python -m kiss_icp_tpu_torch.tools.bench`) as a
+               subprocess on the card, with a 30-frame soak and a K = 2
                chunked artifact: it exits 0 with every child it spawned
                finished (none failed or cut at its timeout, every ab variant
                timed); its last line carries every headline field above 0,
@@ -92,6 +103,8 @@ non-zero without printing the final result line):
                the straight one shifted by exactly the offset), the headline
                child has 0 drops, a max error under the verify gate, and
                K1/K2 launches equal to its GN iterations and final counts
+Phases 13 and 14 run in a thread beside phase 10: all their work is in
+subprocesses, on the host cores that the cli's two renderers leave idle.
 Each mode and option is driven with the kernels' launch counters set to 0
 just before it and read just after. Then one JSON line of per-kernel
 numbers, and the result line
@@ -103,6 +116,7 @@ device is available or when run outside a checkout of the repository.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -155,16 +169,26 @@ OPTIONS = {"deskew_refine=1": dict(deskew_refine=1),
 # starts), each chunk's GN iterations, the frames done at each origin roll,
 # the engine's own time (dispatch_chunk and the poses' read, without the
 # loading of scans in between; and each chunk's dispatch alone: the first
-# holds the process's first kernel calls) and the pipeline's totals.
+# holds the process's first kernel calls), the pipeline's totals, where the
+# package was imported from, where its kernels were built and how long that
+# took. `--script PATH ARGS` runs an installed console script instead.
 CLI_DRIVER = r"""
-import json, sys, time
+import json, runpy, sys, time
+import kiss_icp_tpu_torch
 from kiss_icp_tpu_torch import odometry, pipeline
-from kiss_icp_tpu_torch.kernels import linsys, nn27
+from kiss_icp_tpu_torch.kernels import _build, linsys, nn27
 from kiss_icp_tpu_torch.tools import cmd
 
-seen = {"pipes": [], "iters": [], "rolls": [], "engine_s": 0.0, "chunk_s": []}
+seen = {"pipes": [], "iters": [], "rolls": [], "engine_s": 0.0, "chunk_s": [], "build_s": 0.0}
 K, P = odometry.KissICP, pipeline.OdometryPipeline
 init, dispatch, read, rebase = P.__init__, K.dispatch_chunk, K.summary_poses, K.maybe_rebase
+build_all = _build.build_all
+
+def timed_build():
+    t0 = time.perf_counter()
+    out = build_all()
+    seen["build_s"] += time.perf_counter() - t0
+    return out
 
 def p_init(self, *a, **k):
     init(self, *a, **k)
@@ -191,14 +215,27 @@ def k_rebase(self, *a, **k):
     return rolled
 
 P.__init__, K.dispatch_chunk, K.summary_poses, K.maybe_rebase = p_init, k_dispatch, k_read, k_rebase
+_build.build_all = timed_build
 linsys.build_linear_system.launches = 0
 nn27.query_nearest.launches = 0
-rc = cmd.main(sys.argv[1:])
+if sys.argv[1] == "--script":
+    # An installed console script, run as its own file by this interpreter
+    # (the one its first line names): it imports the patched modules above.
+    sys.argv = sys.argv[2:]
+    try:
+        runpy.run_path(sys.argv[0], run_name="__main__")
+        rc = 0
+    except SystemExit as e:
+        rc = 0 if e.code is None else e.code
+else:
+    rc = cmd.main(sys.argv[1:])
 p = seen["pipes"][0]
 iters = [int(x) for s in seen["iters"] for x in s.cpu().tolist()]
 print("cli-run " + json.dumps({
     "rc": rc, "launches": {"k1": linsys.build_linear_system.launches,
                            "k2": nn27.query_nearest.launches},
+    "package": kiss_icp_tpu_torch.__file__, "build_dir": str(_build.build_dir()),
+    "build_s": seen["build_s"],
     "iterations": iters, "rolls": seen["rolls"],
     "engine_ms_per_frame": seen["engine_s"] * 1e3 / len(iters),
     "chunk_s": seen["chunk_s"],
@@ -575,27 +612,41 @@ def main() -> int:
               f"on {smi}", flush=True)
 
     phase_rebase(icp, cfg, scans, ds)
-    with tempfile.TemporaryDirectory() as tmp:
-        cli_launches = phase_cli(Path(tmp), smi)
-        phase_resume(Path(tmp))
-        mode_launches.update(phase_aot(cfg, scans, drive, Path(tmp), smi))
+    pre_s = time.perf_counter() - t_start
+    phase_s = {}
+
+    def timed(label, fn, *args):
         t0 = time.perf_counter()
-        mode_launches.update(phase_loaders(cfg, scans, ds, drive, Path(tmp), smi))
-        t1 = time.perf_counter()
-        mode_launches.update(phase_ros(cfg, scans, drive, Path(tmp), smi))
-        t2 = time.perf_counter()
-        batch_launches, batch_kernels = phase_batch(cfg, scans, ds, drive, smi)
+        out = fn(*args)
+        phase_s[label] = time.perf_counter() - t0
+        return out
+
+    def beside_cli(tmp: Path) -> dict:
+        """Phases loaders and install, in a thread while phase cli runs: all
+        their work is in subprocesses, on the host cores that the cli's two
+        renderers leave idle."""
+        out = timed("loaders", phase_loaders, cfg, scans, ds, drive, tmp, smi)
+        out.update(timed("install", phase_install, scans, ds, tmp, smi))
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            concurrent.futures.ThreadPoolExecutor(1) as pool:
+        side = pool.submit(beside_cli, Path(tmp))
+        cli_launches = timed("cli", phase_cli, Path(tmp), smi)
+        mode_launches.update(side.result())
+        timed("resume", phase_resume, Path(tmp))
+        mode_launches.update(timed("aot", phase_aot, cfg, scans, drive, Path(tmp), smi))
+        mode_launches.update(timed("ros", phase_ros, cfg, scans, drive, Path(tmp), smi))
+        batch_launches, batch_kernels = timed("batch", phase_batch, cfg, scans, ds, drive, smi)
         mode_launches.update(batch_launches)
-        t3 = time.perf_counter()
-        shard_launches, shard_kernels = phase_shards(cfg, scans, ds, drive, icp, Path(tmp), smi)
+        shard_launches, shard_kernels = timed("shards", phase_shards, cfg, scans, ds, drive,
+                                              icp, Path(tmp), smi)
         mode_launches.update(shard_launches)
-        t4 = time.perf_counter()
-        phase_tools(cfg, scans, ds, smi)
-        t5 = time.perf_counter()
-        mode_launches.update(phase_bench(Path(tmp), smi))
-        print(f"time: phase loaders {t1 - t0:.1f} s, phase ros {t2 - t1:.1f} s, phase batch "
-              f"{t3 - t2:.1f} s, phase shards {t4 - t3:.1f} s, phase tools "
-              f"{t5 - t4:.1f} s, phase bench {time.perf_counter() - t5:.1f} s, the script "
+        timed("tools", phase_tools, cfg, scans, ds, smi)
+        mode_launches.update(timed("bench", phase_bench, Path(tmp), smi))
+        print(f"time: phases 1-9 {pre_s:.1f} s, "
+              + ", ".join(f"phase {k} {v:.1f} s" for k, v in phase_s.items())
+              + f" (loaders and install beside cli), the script "
               f"{time.perf_counter() - t_start:.1f} s (host clock); on {smi}", flush=True)
     for k, key in zip(kernels, ("k1", "k2")):
         k["launches_cli"] = {run: cli_launches[run][key] for run in ("A", "B")}
@@ -1320,6 +1371,174 @@ def phase_loaders(cfg, scans, ds, drive: dict, tmp: Path, smi: str) -> dict:
     return out
 
 
+# The KITTI loader's vertical-angle correction (datasets/kitti.py), which
+# write_kitti undoes so that the loader gives back the drive's geometry.
+KITTI_ANGLE = np.deg2rad(0.205)
+
+
+def write_kitti(root: Path, scans, gt) -> None:
+    """KITTI odometry's layout under root: sequences/00/velodyne/<i>.bin
+    float32 (x, y, z, 0) records, each scan rotated by -0.205 deg about
+    p x z (the inverse of the loader's correction, which leaves that axis
+    fixed), calib.txt with an identity Tr (the lidar frame is the camera's,
+    so the written poses are the lidar poses) and poses/00.txt, the ground
+    truth."""
+    seq = root / "sequences" / "00"
+    (seq / "velodyne").mkdir(parents=True)
+    (root / "poses").mkdir()
+    c, s_ = np.cos(-KITTI_ANGLE), np.sin(-KITTI_ANGLE)
+    for i, (pts, _) in enumerate(scans):
+        p = np.asarray(pts, np.float64)
+        axis = np.cross(p, [0.0, 0.0, 1.0])
+        norm = np.linalg.norm(axis, axis=1, keepdims=True)
+        axis = np.divide(axis, norm, out=np.zeros_like(axis), where=norm > 0)
+        raw = np.zeros((len(p), 4), np.float32)
+        raw[:, :3] = (p * c + np.cross(axis, p) * s_
+                      + axis * np.sum(axis * p, axis=1, keepdims=True) * (1.0 - c))
+        raw.tofile(seq / "velodyne" / f"{i:06d}.bin")
+    eye = " ".join(f"{x:g}" for x in np.eye(4)[:3].ravel())
+    (seq / "calib.txt").write_text(f"P0: {eye}\nTr: {eye}\n")
+    np.savetxt(root / "poses" / "00.txt", np.asarray(gt)[:, :3, :].reshape(len(gt), 12))
+    (seq / "times.txt").write_text("".join(f"{0.1 * i:.1f}\n" for i in range(len(scans))))
+
+
+def _tree(root: Path) -> dict:
+    """{relative path: (size, mtime ns)} of every entry under root."""
+    return {str(p.relative_to(root)): (p.lstat().st_size, p.lstat().st_mtime_ns)
+            for p in root.rglob("*")}
+
+
+def _set_read_only(root: Path, read_only: bool) -> None:
+    for p in [root, *root.rglob("*")]:
+        if not p.is_symlink():
+            mode = p.stat().st_mode
+            p.chmod(mode & ~0o222 if read_only else mode | 0o200)
+
+
+def phase_install(scans, ds, tmp: Path, smi: str) -> dict:
+    """14. The port as a user installs it: the wheel built offline from a
+    copy of the checkout's packaging files and packages, installed with
+    --target into a directory then marked read-only; its console script
+    `kiss_icp_tpu_torch_pipeline` with the shipped config/basic.yaml at its
+    default device over the drive's 12 scans written as a KITTI sequence,
+    from a directory outside the checkout with only the install on
+    PYTHONPATH and a fresh XDG_CACHE_HOME, so nvcc builds K1 and K2 from the
+    wheel's sources into that cache; at the same time the same command from
+    the checkout. Returns the installed run's launches."""
+    import shutil
+
+    t0 = time.perf_counter()
+    src, dist, target = tmp / "install_src", tmp / "install_dist", tmp / "install_target"
+    src.mkdir()
+    ignore = shutil.ignore_patterns("_build", "__pycache__", "*.so", "*.egg-info")
+    for name in ("pyproject.toml", "README.md", "kiss_icp_tpu", "kiss_icp_tpu_torch"):
+        if (REPO / name).is_dir():
+            shutil.copytree(REPO / name, src / name, ignore=ignore)
+        else:
+            shutil.copy2(REPO / name, src / name)
+    pip = [sys.executable, "-m", "pip", "--disable-pip-version-check", "--no-input"]
+    pip_env = dict(os.environ, PIP_NO_INDEX="1")
+    out = subprocess.run([*pip, "wheel", "--no-deps", "--no-build-isolation", "--no-index",
+                          "-q", "-w", str(dist), str(src)], capture_output=True, text=True,
+                         timeout=300, env=pip_env)
+    check(out.returncode == 0, f"install: pip wheel failed\n{out.stderr[-3000:]}")
+    wheel, = dist.glob("*.whl")
+    t1 = time.perf_counter()
+    out = subprocess.run([*pip, "install", "--no-deps", "--no-index", "-q", "--target",
+                          str(target), str(wheel)], capture_output=True, text=True,
+                         timeout=300, env=pip_env)
+    check(out.returncode == 0, f"install: pip install failed\n{out.stderr[-3000:]}")
+    t2 = time.perf_counter()
+    script = target / "bin" / "kiss_icp_tpu_torch_pipeline"
+    check(script.is_file() and (target / "kiss_icp_tpu_torch" / "csrc" / "linsys.cu").is_file()
+          and (target / "kiss_icp_tpu_torch" / "csrc" / "nn27.cu").is_file(),
+          "install: the install lacks the console script or the CUDA sources")
+
+    gt = ds.gt_poses[:N_FRAMES]
+    write_kitti(tmp / "kitti", scans, gt)
+    data = (str(tmp / "kitti"), "--dataloader", "kitti", "--sequence", "00",
+            "--config", str(REPO / "config" / "basic.yaml"))
+    cache = tmp / "install_cache"
+    runs = {"installed": (["--script", str(script)],
+                          dict(os.environ, PYTHONPATH=str(target), XDG_CACHE_HOME=str(cache))),
+            "checkout": ([], dict(os.environ, PYTHONPATH=str(REPO)))}
+    _set_read_only(target, True)
+    before = _tree(target)
+    procs, records, walls = {}, {}, {}
+    try:
+        for label, (head, env) in runs.items():
+            cwd = tmp / f"install_cwd_{label}"
+            cwd.mkdir()
+            logs = (open(tmp / f"install_{label}.out", "w"),
+                    open(tmp / f"install_{label}.err", "w"))
+            procs[label] = (subprocess.Popen([sys.executable, "-c", CLI_DRIVER, *head, *data],
+                                             cwd=cwd, env=env, stdout=logs[0], stderr=logs[1]),
+                            logs, cwd, time.perf_counter())
+        for label, (proc, logs, cwd, start) in procs.items():
+            rc = proc.wait(timeout=600)
+            walls[label] = time.perf_counter() - start
+            for f in logs:
+                f.close()
+            text = (tmp / f"install_{label}.out").read_text()
+            check(rc == 0, f"install {label}: rc {rc}\n{text[-2000:]}\n"
+                  f"{(tmp / f'install_{label}.err').read_text()[-4000:]}")
+            lines = [ln for ln in text.splitlines() if ln.startswith("cli-run ")]
+            check(len(lines) == 1, f"install {label}: no cli-run record in its output")
+            records[label] = json.loads(lines[0][len("cli-run "):])
+    finally:
+        for proc, logs, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            for f in logs:
+                f.close()
+        after = _tree(target)
+        _set_read_only(target, False)
+    t3 = time.perf_counter()
+
+    inst, ref = records["installed"], records["checkout"]
+    check(Path(inst["package"]).parent == target / "kiss_icp_tpu_torch",
+          f"install: the installed run imported {inst['package']}")
+    check(Path(ref["package"]).parent == REPO / "kiss_icp_tpu_torch",
+          f"install: the checkout's run imported {ref['package']}")
+    built = Path(inst["build_dir"])
+    check(built.parent == cache / "kiss_icp_tpu_torch" / "build"
+          and all((built / f"{n}.so").is_file() for n in ("linsys", "nn27")),
+          f"install: the kernels were not built into the user cache ({built})")
+    check(after == before, "install: the installed run wrote into the install: "
+          f"{sorted(set(after) ^ set(before))[:10]}")
+    poses = {label: np.load(tmp / f"install_cwd_{label}" / "results" / "latest"
+                            / "00_poses.npy") for label in runs}
+    for label, run in records.items():
+        check(run["device"].startswith("cuda") and poses[label].shape == (N_FRAMES, 4, 4),
+              f"install {label}: poses {poses[label].shape} on {run['device']}")
+        k = run["launches"]
+        check(k["k1"] > 0 and k["k2"] > 0, f"install {label}: a kernel was not launched ({k})")
+    check(np.array_equal(poses["installed"], poses["checkout"]),
+          f"install: the installed run's poses differ from the checkout's by "
+          f"{np.abs(poses['installed'] - poses['checkout']).max():.3e}")
+    check(inst["iterations"] == ref["iterations"] and inst["launches"] == ref["launches"],
+          f"install: iterations / launches {inst['launches']} against the checkout's "
+          f"{ref['launches']}")
+    err = np.linalg.norm(poses["installed"][:, :3, 3] - gt[:, :3, 3], axis=1)
+    check_verify_gates("install", {"poses": poses["installed"], "iters": inst["iterations"],
+                                   "drops": sum(inst["drops"].values())}, err)
+    r = inst["results"]
+    print(f"install: wheel {wheel.name} built offline in {t1 - t0:.1f} s, installed with "
+          f"--target in {t2 - t1:.1f} s and marked read-only; `kiss_icp_tpu_torch_pipeline "
+          f"{' '.join(data[1:-1])} config/basic.yaml` (device left at its default) from "
+          f"outside the checkout, PYTHONPATH the install alone: nvcc built K1 and K2 from the "
+          f"wheel's sources into XDG_CACHE_HOME ({built.name}) in {inst['build_s']:.1f} s, "
+          f"the drive {walls['installed'] - inst['build_s']:.1f} s (the process "
+          f"{walls['installed']:.1f} s; the checkout's run beside it {walls['checkout']:.1f} "
+          f"s, its kernels already built); nothing written into the install; "
+          f"launches K1 {inst['launches']['k1']} / K2 {inst['launches']['k2']}, iterations "
+          f"{inst['iterations']}; poses bit-identical to the checkout's run; max_err "
+          f"{err.max():.4f} m, ATE {r['Absolute Trajectory Error (ATE)']:.4f} m, drops "
+          f"{inst['drops']}; the phase {t3 - t0:.1f} s; on {smi}", flush=True)
+    return {"install": inst["launches"]}
+
+
 # The batch phase: B = 4 sequences checked, and B = 1, 4, 8 timed.
 BATCH_ROWS = 4
 BATCH_TIMED = (1, 4, 8)
@@ -1396,7 +1615,7 @@ def lockstep_drive(cfg, row_scans) -> dict:
 
 
 def phase_batch(cfg, scans, ds, drive: dict, smi: str):
-    """15. The sequence axis (parallel/batch.py) on the card: the drive's
+    """16. The sequence axis (parallel/batch.py) on the card: the drive's
     scans as B = 4 rows turned b quarter turns about z. The batched kernels
     at the lockstep path's shapes against the unbatched kernels row by row
     (bit for bit) and their plain versions; BatchedOdometry over the 12
@@ -1607,7 +1826,7 @@ def sharded_drive(cfg, scans, **engine) -> dict:
 
 
 def phase_shards(cfg, scans, ds, drive: dict, icp, tmp: Path, smi: str):
-    """16. The rest of parallel/ on the card: (a) the drive through
+    """17. The rest of parallel/ on the card: (a) the drive through
     create_odometry with map_shards = 2 and 4, against the drive and the
     verify gates, one batched K1 and one batched K2 launch per GN iteration
     for all shards, the batched kernels over the shard rows against the
@@ -1887,7 +2106,7 @@ def phase_shards(cfg, scans, ds, drive: dict, icp, tmp: Path, smi: str):
 
 
 def phase_tools(cfg, scans, ds, smi: str) -> None:
-    """17. The host tools on the card: tools/op_breakdown over the drive's
+    """18. The host tools on the card: tools/op_breakdown over the drive's
     first 6 scans (the last 3 profiled), its per-stage table and the two
     kernels as the profiler saw them; tools/capacity_plan over the drive's
     12 scans and ground truth, beside the drive's configured capacities."""
@@ -1933,8 +2152,10 @@ def phase_tools(cfg, scans, ds, smi: str) -> None:
 
 # The bench phase: the parent's budget (its soak needs 500 s left after the
 # headline child), the soak's length, and the chunked artifact's K (its
-# export grows with K).
-BENCH_ENV = {"KISS_BENCH_BUDGET_S": "640", "KISS_BENCH_SOAK_FRAMES": "48"}
+# export grows with K). The soak runs the 30-frame drive the robust child
+# renders anyway (one timed 24-frame chunk): a longer soak needs a cache of
+# its own, since frame i of the drive depends on the drive's length.
+BENCH_ENV = {"KISS_BENCH_BUDGET_S": "640", "KISS_BENCH_SOAK_FRAMES": "30"}
 BENCH_ARGV = ("--aot-chunk", "2")
 BENCH_TIMEOUT_S = 700
 # The robust child's drive on a cold 240-frame cache (this phase renders
@@ -1947,9 +2168,9 @@ BENCH_POSITIVE = ("value", "median_fps", "steady_state_fps", "batched_seq_fps",
 
 
 def phase_bench(tmp: Path, smi: str) -> dict:
-    """18. The port's bench on the card, as a user runs it: the parent as a
+    """19. The port's bench on the card, as a user runs it: the parent as a
     subprocess (each child its own process) over the bench's own drive. Its
-    scan caches (14, 30 and 48 frames: frame i of the drive depends on the
+    scan caches (14 and 30 frames: frame i of the drive depends on the
     drive's length, so no length can reuse another's frames) are rendered
     here first, across the host's cores, so that the parent's soak gate
     sees them warm. Returns the children's K1/K2 launches."""
@@ -1963,7 +2184,7 @@ def phase_bench(tmp: Path, smi: str) -> dict:
     before = os.environ.get("KISS_BENCH_CACHE_DIR")
     os.environ["KISS_BENCH_CACHE_DIR"] = str(cache)
     try:
-        for n in (bench.N_FRAMES, 30, int(BENCH_ENV["KISS_BENCH_SOAK_FRAMES"])):
+        for n in sorted({bench.N_FRAMES, 30, int(BENCH_ENV["KISS_BENCH_SOAK_FRAMES"])}):
             bench._scans(bench._config(), n)
     finally:
         if before is None:
@@ -2130,7 +2351,7 @@ def fake_ros_modules(overrides: dict, on_spin):
 
 
 def phase_ros(cfg, scans, drive: dict, tmp: Path, smi: str) -> dict:
-    """14. The ROS 2 node on the card: main() spins a node whose device is
+    """15. The ROS 2 node on the card: main() spins a node whose device is
     left at its default; the fake spin publishes the drive's 12 scans as
     PointCloud2 records (float32 x y z t, t the stamps the step uses) and
     returns; main() then writes the shutdown checkpoint. Returns the

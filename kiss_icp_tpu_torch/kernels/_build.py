@@ -1,10 +1,18 @@
 """Build the CUDA sources under `csrc/` with nvcc at first use, load with ctypes.
 
-Each `csrc/<name>.cu` becomes `_build/<hash>/<name>.so`, a shared library
+Each `csrc/<name>.cu` becomes `<root>/<hash>/<name>.so`, a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds). The
 directory is keyed by a hash of every source and of the flags, so an edited
 source never loads a stale library. All sources compile in parallel, one
 nvcc process each. A failed build raises; nothing falls back.
+
+`<root>` is the package's own `_build/` when that directory can be created
+and written (a checkout), else the user's cache,
+`$XDG_CACHE_HOME/kiss_icp_tpu_torch/build` (default `~/.cache/...`): an
+installed package may sit in a read-only site-packages. Either way nvcc
+builds the same sources. Processes that build at once each write their own
+temporary file and rename it into place, so none loads a half-written
+library.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine without nvcc.
@@ -18,13 +26,14 @@ import hashlib
 import os
 import re
 import shutil
+import stat
 import subprocess
 from pathlib import Path
 from typing import Dict, List
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
-BUILD_ROOT = PACKAGE_DIR / "_build"
+PACKAGE_BUILD_ROOT = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -50,12 +59,49 @@ def nvcc_path() -> str:
     return found
 
 
+def cache_build_root() -> Path:
+    """The user-cache build root: $XDG_CACHE_HOME, else ~/.cache."""
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
+    return Path(cache) / "kiss_icp_tpu_torch" / "build"
+
+
+def _writable(path: Path) -> bool:
+    """Whether `path` is a directory this process may write in, by its own
+    permission bits as well as by the file system: a directory marked
+    read-only counts as read-only even for root, who could write it anyway."""
+    try:
+        st = path.stat()
+    except OSError:
+        return False
+    if st.st_uid == os.geteuid():
+        bit = stat.S_IWUSR
+    elif st.st_gid == os.getegid() or st.st_gid in os.getgroups():
+        bit = stat.S_IWGRP
+    else:
+        bit = stat.S_IWOTH
+    return stat.S_ISDIR(st.st_mode) and bool(st.st_mode & bit) \
+        and os.access(path, os.W_OK | os.X_OK)
+
+
+def build_root() -> Path:
+    """The package's `_build/` if it can be created and written, else the
+    user cache (module docstring)."""
+    own = PACKAGE_BUILD_ROOT
+    if _writable(own) or (not own.exists() and _writable(PACKAGE_DIR)):
+        return own
+    return cache_build_root()
+
+
+def _roots_tried() -> str:
+    return f"build directories: {PACKAGE_BUILD_ROOT} (the package's), then {cache_build_root()}"
+
+
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name, path in sources().items():
         h.update(name.encode())
         h.update(path.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16]
+    return build_root() / h.hexdigest()[:16]
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,8 +112,12 @@ def build_all() -> Path:
     todo = {n: p for n, p in sources().items() if not (out / f"{n}.so").is_file()}
     if not todo:
         return out
-    out.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path()
+    try:
+        out.mkdir(parents=True, exist_ok=True)
+        nvcc = nvcc_path()
+    except (OSError, RuntimeError) as e:
+        raise RuntimeError(f"cannot build the CUDA kernels into {out} ({_roots_tried()}): "
+                           f"{e}") from e
     procs = {}
     for name, src in todo.items():
         tmp = out / f"{name}.so.{os.getpid()}.tmp"
@@ -124,7 +174,7 @@ def ptxas_report() -> List[str]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded shared library built from csrc/<name>.cu."""
     if name not in sources():
-        raise KeyError(f"no CUDA source csrc/{name}.cu")
+        raise KeyError(f"no CUDA source {CSRC_DIR / (name + '.cu')} ({_roots_tried()})")
     return ctypes.CDLL(str(build_all() / f"{name}.so"))
 
 

@@ -95,6 +95,11 @@ from pathlib import Path
 
 import numpy as np
 
+# The directory that holds the package: a checkout's root, or the
+# site-packages (or `pip install --target` directory) of an installed copy.
+# It is the children's cwd and heads their PYTHONPATH, so each child imports
+# the parent's own copy; the default log directory lies under it, and where
+# that cannot be created the raw child logs are disabled (`_log_dir`).
 REPO = Path(__file__).resolve().parents[2]
 TARGET_FPS = 100.0  # BASELINE.md: >= 100 frames/s per chip, a user requirement
 N_FRAMES = 14

@@ -36,8 +36,6 @@ from kiss_icp_tpu_torch.kernels import _build, nn27
 from kiss_icp_tpu_torch.ops import hash_map, se3, voxel
 from kiss_icp_tpu_torch.tools.timing import time_ms
 
-OUT = _build.BUILD_ROOT / "anatomy"
-
 # K1 variants: bit 1 per-point arithmetic, bit 2 cluster exchange, bit 4 loads.
 K1_MODES = {7: "full kernel", 5: "loads + arithmetic, no cluster exchange",
             6: "loads + cluster exchange, no arithmetic", 4: "loads only"}
@@ -157,20 +155,22 @@ def _k2_source(ku: int, warps: int, nan: str) -> str:
 
 
 def build(sources: dict) -> dict:
-    """{name: source text} -> {name: (loaded library, ptxas registers)}."""
-    OUT.mkdir(parents=True, exist_ok=True)
+    """{name: source text} -> {name: (loaded library, ptxas registers)},
+    built into `anatomy/` under the kernels' build root."""
+    out = _build.build_root() / "anatomy"
+    out.mkdir(parents=True, exist_ok=True)
     nvcc, procs = _build.nvcc_path(), {}
     for name, text in sources.items():
-        (OUT / f"{name}.cu").write_text(text)
+        (out / f"{name}.cu").write_text(text)
         procs[name] = subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-o", str(OUT / f"{name}.so"), str(OUT / f"{name}.cu")],
+            [nvcc, *_build.NVCC_FLAGS, "-o", str(out / f"{name}.so"), str(out / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"anatomy: nvcc failed on {name}:\n{log}")
-        libs[name] = (ctypes.CDLL(str(OUT / f"{name}.so")),
+        libs[name] = (ctypes.CDLL(str(out / f"{name}.so")),
                       re.findall(r"Used (\d+) registers", log))
     return libs
 

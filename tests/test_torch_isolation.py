@@ -1,7 +1,8 @@
-"""The port stands alone: no module of kiss_icp_tpu_torch, and not
-chip_smoke.py, imports JAX, the JAX package or the root bench.py (the
-port's bench is tools/bench.py); importing every port module
-builds nothing and needs no card; chip_smoke.py refuses to run without one.
+"""The port stands alone: no module of kiss_icp_tpu_torch, no file of its
+ament package ros_torch/, and not chip_smoke.py, imports JAX, the JAX
+package or the root bench.py (the port's bench is tools/bench.py);
+importing every port module builds nothing and needs no card;
+chip_smoke.py refuses to run without one.
 """
 
 import ast
@@ -18,7 +19,8 @@ FORBIDDEN = ("jax", "jaxlib", "kiss_icp_tpu", "bench")  # bench: the root bench.
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + sorted((REPO / "ros_torch").rglob("*.py"))
+            + [REPO / "chip_smoke.py"])
 
 
 def _modules():
