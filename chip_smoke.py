@@ -103,8 +103,21 @@ non-zero without printing the final result line):
                the straight one shifted by exactly the offset), the headline
                child has 0 drops, a max error under the verify gate, and
                K1/K2 launches equal to its GN iterations and final counts
-Phases 13 and 14 run in a thread beside phase 10: all their work is in
-subprocesses, on the host cores that the cli's two renderers leave idle.
+ 20. properties the hypothesis properties of tests/torch_properties.py on the
+               examples drawn here (derandomized, seeded) and on the CPU
+               tests' recorded ones: the map query through K2 on f32 and
+               u16 maps, honest and optimal against brute force (rtol /
+               atol 1e-5); the garbage fuzz (NaN floods,
+               +-1e4 m outliers, random masks; JAX's examples and the same
+               garbage over a scene) through register_frame with K1 and K2,
+               every pose finite and SE(3) within 1e-4, sigma finite; the u16
+               against f32 closed loop within 2e-3, card against CPU within
+               1e-4; its examples (with digests), launches and seconds
+Phases 13, 14, 20 and 12, in that order, run in a thread beside phase 10:
+13 and 14 work in subprocesses, on the host cores that the cli's two
+renderers leave idle, and phase 10 launches nothing in this process, so the
+launches that 20 and 12 count are their own (their host-clock times are
+taken beside the cli's two drives).
 Each mode and option is driven with the kernels' launch counters set to 0
 just before it and read just after. Then one JSON line of per-kernel
 numbers, and the result line
@@ -622,11 +635,15 @@ def main() -> int:
         return out
 
     def beside_cli(tmp: Path) -> dict:
-        """Phases loaders and install, in a thread while phase cli runs: all
-        their work is in subprocesses, on the host cores that the cli's two
-        renderers leave idle."""
+        """Phases loaders, install, properties and aot, in a thread while
+        phase cli runs: the first two work in subprocesses, on the host
+        cores that the cli's two renderers leave idle; the last two launch
+        the kernels in this process, where nothing else launches them until
+        cli ends."""
         out = timed("loaders", phase_loaders, cfg, scans, ds, drive, tmp, smi)
         out.update(timed("install", phase_install, scans, ds, tmp, smi))
+        out.update(timed("properties", phase_properties, smi))
+        out.update(timed("aot", phase_aot, cfg, scans, drive, tmp, smi))
         return out
 
     with tempfile.TemporaryDirectory() as tmp, \
@@ -635,7 +652,6 @@ def main() -> int:
         cli_launches = timed("cli", phase_cli, Path(tmp), smi)
         mode_launches.update(side.result())
         timed("resume", phase_resume, Path(tmp))
-        mode_launches.update(timed("aot", phase_aot, cfg, scans, drive, Path(tmp), smi))
         mode_launches.update(timed("ros", phase_ros, cfg, scans, drive, Path(tmp), smi))
         batch_launches, batch_kernels = timed("batch", phase_batch, cfg, scans, ds, drive, smi)
         mode_launches.update(batch_launches)
@@ -646,7 +662,7 @@ def main() -> int:
         mode_launches.update(timed("bench", phase_bench, Path(tmp), smi))
         print(f"time: phases 1-9 {pre_s:.1f} s, "
               + ", ".join(f"phase {k} {v:.1f} s" for k, v in phase_s.items())
-              + f" (loaders and install beside cli), the script "
+              + f" (loaders, install, properties and aot beside cli), the script "
               f"{time.perf_counter() - t_start:.1f} s (host clock); on {smi}", flush=True)
     for k, key in zip(kernels, ("k1", "k2")):
         k["launches_cli"] = {run: cli_launches[run][key] for run in ("A", "B")}
@@ -2148,6 +2164,73 @@ def phase_tools(cfg, scans, ds, smi: str) -> None:
                                                        "source_capacity", "map_capacity_log2")}
     print(f"tools capacity_plan: the drive's {len(frames)} scans with ground truth -> "
           f"{json.dumps(plan.as_dict())}; the drive runs with {configured}", flush=True)
+
+
+# tests/test_quantized_map.py:119: u16 against f32 storage on the closed
+# loop; tests/test_torch_odometry.py: the card against the CPU.
+CLOSED_LOOP_ATOL = 2e-3
+CARD_CPU_ATOL = 1e-4
+
+
+def phase_properties(smi: str) -> dict:
+    """20. The hypothesis properties of tests/torch_properties.py on the
+    card, on the examples this hypothesis draws (derandomized and seeded)
+    and on those the CPU tests replay (tests/torch_property_examples.npz:
+    another hypothesis version draws others): the map query through K2 on
+    f32 and u16 maps, honest and optimal against brute force at rtol / atol
+    1e-5; the garbage fuzz (JAX's examples, and the same garbage over
+    a scene so that the Gauss-Newton loop runs) through register_frame with
+    K1 and K2: poses finite and SE(3) within 1e-4, sigma finite; the u16
+    against f32 closed loop within 2e-3, and each storage's card poses
+    within 1e-4 of the CPU's. Nothing is caught: a violation fails the run.
+    Returns the phase's launches."""
+    import hashlib
+
+    import hypothesis
+
+    from kiss_icp_tpu_torch.kernels import linsys, nn27
+
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_properties as tp
+
+    t0 = time.perf_counter()
+    linsys.build_linear_system.launches = 0
+    nn27.query_nearest.launches = 0
+    examples, digests = {}, {}
+
+    def digest(label):
+        h = digests[label] = hashlib.sha256()
+        return lambda *example: [h.update(np.ascontiguousarray(a).tobytes())
+                                 for a in example[:2]]
+
+    for storage in ("f32", "u16"):
+        label = f"map query {storage}"
+        examples[label] = tp.run_map_query(storage, "cuda", digest(label))
+        examples[f"{label}, recorded"] = tp.replay_map_query(storage, "cuda")
+    examples["garbage"] = tp.run_garbage("cuda", digest("garbage"))
+    examples["garbage in a scene"] = tp.run_garbage_in_scene("cuda", digest("garbage in a scene"))
+    for which in ("garbage", "scene"):
+        examples[f"{which}, recorded"] = tp.replay_garbage(which, "cuda")
+    loops = {d: {st: tp.closed_loop_poses(st, d) for st in ("u16", "f32")}
+             for d in ("cuda", "cpu")}
+    loop_diff = float(np.abs(loops["cuda"]["u16"] - loops["cuda"]["f32"]).max())
+    check(loop_diff <= CLOSED_LOOP_ATOL,
+          f"properties: the u16 closed loop departs from f32 by {loop_diff:.3e} "
+          f"> {CLOSED_LOOP_ATOL}")
+    card_cpu = max(float(np.abs(loops["cuda"][st] - loops["cpu"][st]).max())
+                   for st in ("u16", "f32"))
+    check(card_cpu <= CARD_CPU_ATOL,
+          f"properties: the closed loop on the card departs from the CPU's by {card_cpu:.3e}")
+    launches = {"k1": linsys.build_linear_system.launches, "k2": nn27.query_nearest.launches}
+    check(launches["k1"] > 0 and launches["k2"] > 0,
+          f"properties: a kernel was not launched ({launches})")
+    print(f"properties: hypothesis {hypothesis.__version__} (the recorded examples: "
+          f"{tp.recorded()['hypothesis_version']}), examples {examples} (digests "
+          + json.dumps({k: h.hexdigest()[:16] for k, h in digests.items()})
+          + f"), 0 violations; closed loop u16 vs f32 {loop_diff:.3e} (limit "
+          f"{CLOSED_LOOP_ATOL}), card vs CPU {card_cpu:.3e}; launches K1 {launches['k1']} / "
+          f"K2 {launches['k2']}; {time.perf_counter() - t0:.1f} s; on {smi}", flush=True)
+    return {"properties": launches}
 
 
 # The bench phase: the parent's budget (its soak needs 500 s left after the

@@ -21,7 +21,12 @@ cloud, and the row says which (`"drive"`).
 
 Each process count runs in fresh child processes (the process group is
 fixed at start-up), under `--timeout` seconds; a child that fails or times
-out fails the run (exit code 1). Output: one JSON line per run, with each
+out fails the run (exit code 1). Each rank takes OMP_NUM_THREADS intra-op
+threads when that is set, else an equal share of the host's cores: a rank
+that took the whole share on a host busy with other work spent most of its
+time waiting on its own descheduled threads. A run of several processes
+whose coordinator port was taken between its choice and rank 0's bind is
+launched again on another port. Output: one JSON line per run, with each
 rank's device and kernel launches, and a summary JSON (also written to
 `--out`), with the cross-run pose parity.
 
@@ -33,11 +38,13 @@ Usage:  python -m kiss_icp_tpu_torch.tools.scaling_bench [--out FILE]
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -115,7 +122,7 @@ def child(batch: int, k: int, use_pod: bool, device: str, use_drive: bool = Fals
 
     spec = multihost.initialize_from_env()
     n_proc, rank = spec.num_processes, spec.process_id
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // n_proc))
+    torch.set_num_threads(_threads(n_proc))
     cfg = _child_config()
     n = cfg.engine.max_points_per_frame
     drive = _drive_frames(batch, k, n) if use_drive else None
@@ -185,53 +192,91 @@ def child(batch: int, k: int, use_pod: bool, device: str, use_drive: bool = Fals
     return row
 
 
+def _threads(n_proc: int) -> int:
+    """A rank's intra-op threads: OMP_NUM_THREADS when set, else its share
+    of the host's cores."""
+    explicit = os.environ.get("OMP_NUM_THREADS", "")
+    if explicit.isdigit() and int(explicit) > 0:
+        return int(explicit)
+    return max(1, (os.cpu_count() or 1) // n_proc)
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
 
+# What rank 0 prints when its coordinator port was taken after _free_port
+# released it (torch.distributed's TCPStore: EADDRINUSE).
+_PORT_TAKEN = ("EADDRINUSE", "address already in use")
+_PORT_TRIES = 3
+
+
 def run_processes(n: int, args) -> dict:
     """N child processes of one run; the row, or {"devices": n, "error": ...}
-    when a child fails or outlives `args.timeout` (every child is killed)."""
-    port = _free_port()
+    when a child fails or outlives `args.timeout` (every child is killed).
+    One process forms no process group and takes no port; several whose
+    port was taken before rank 0 bound it run again on another."""
+    for _ in range(_PORT_TRIES):
+        row = _run_once(n, args, _free_port() if n > 1 else None)
+        if not any(s in row.get("error", "") for s in _PORT_TAKEN):
+            return row
+    return row
+
+
+def _run_once(n: int, args, port) -> dict:
+    """One launch of the N ranks. A rank that exits non-zero ends the run at
+    once (the others would wait out the process group's timeout for it)."""
     cmd = [sys.executable, "-m", "kiss_icp_tpu_torch.tools.scaling_bench",
            "--batch", str(args.batch), "--frames", str(args.frames), "--device", args.device]
     if args.pod:
         cmd.append("--pod")
     if args.drive:
         cmd.append("--drive")
-    procs = []
-    for rank in range(n):
-        env = dict(os.environ, **{_CHILD_ENV: str(n), "KISS_NUM_PROCESSES": str(n),
-                                  "KISS_PROCESS_ID": str(rank), "KISS_DIST_BACKEND": "gloo",
-                                  "KISS_COORDINATOR": f"127.0.0.1:{port}",
-                                  "KISS_DIST_TIMEOUT": str(args.timeout)})
-        procs.append(subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
-                                      stderr=subprocess.PIPE, text=True))
-    deadline = time.monotonic() + args.timeout
-    outs, error = [], None
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=max(0.1, deadline - time.monotonic())))
-    except subprocess.TimeoutExpired:
-        error = f"timeout after {args.timeout} s"
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
+    error = None
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as files:
+        logs = [tuple(files.enter_context(open(os.path.join(tmp, f"{r}.{k}"), "w+"))
+                      for k in ("out", "err")) for r in range(n)]
+        procs = []
+        try:
+            for rank, (out, err) in enumerate(logs):
+                env = dict(os.environ, **{_CHILD_ENV: str(n), "KISS_NUM_PROCESSES": str(n),
+                                          "KISS_PROCESS_ID": str(rank),
+                                          "KISS_DIST_BACKEND": "gloo",
+                                          "KISS_DIST_TIMEOUT": str(args.timeout)})
+                if port is not None:
+                    env["KISS_COORDINATOR"] = f"127.0.0.1:{port}"
+                procs.append(subprocess.Popen(cmd, env=env, stdout=out, stderr=err, text=True))
+            deadline = time.monotonic() + args.timeout
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs):
+                    break
+                if time.monotonic() > deadline:
+                    error = f"timeout after {args.timeout} s"
+                    break
+                time.sleep(0.05)
+        finally:
+            killed = [p.poll() is None for p in procs]
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
                 p.wait()
-    for rank, (p, out) in enumerate(zip(procs, outs)):
-        stdout, stderr = out
+        texts = []
+        for out, err in logs:
+            out.seek(0)
+            err.seek(0)
+            texts.append((out.read(), err.read()))
+    for rank, (p, (stdout, stderr)) in enumerate(zip(procs, texts)):
         for ln in stdout.splitlines():
             if ln.startswith("rank "):
                 print(ln, file=sys.stderr, flush=True)
-        if p.returncode != 0 and error is None:
+        if p.returncode != 0 and not killed[rank] and error is None:
             error = f"rank {rank} rc={p.returncode}: {stderr[-2000:]}"
     if error is not None:
         print(f"devices={n}: FAILED {error}", file=sys.stderr, flush=True)
         return {"devices": n, "error": error}
-    line = [ln for ln in outs[0][0].splitlines() if ln.startswith("{")]
+    line = [ln for ln in texts[0][0].splitlines() if ln.startswith("{")]
     return json.loads(line[-1])
 
 

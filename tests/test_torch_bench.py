@@ -15,14 +15,17 @@ bench.py, and tools/scaling_bench.py's --drive windows, on the CPU.
     a child that exits non-zero fails the parent (no salvage of what it
     published); `--aot-chunk` reaches the aot child only;
   * scaling_bench's windows bit-equal to the JAX tool's `_drive_frames`,
-    and `--drive` on a cold and a warm cache.
+    `--drive` on a cold and a warm cache, each rank's thread count, and a
+    run whose coordinator port was taken launched again.
 Host timings are never asserted.
 """
 
+import argparse
 import hashlib
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 
@@ -392,6 +395,45 @@ def test_scaling_bench_drive_flag_cold_and_warm(tmp_path):
                  gt=np.tile(np.eye(4), (240, 1, 1)))
     assert [r["drive"] for r in rows] == [False, True]
     assert rows[0]["final_translations"] != rows[1]["final_translations"]
+
+
+def test_scaling_bench_rank_threads(monkeypatch):
+    """A rank takes OMP_NUM_THREADS threads when set, else its share of the
+    host's cores (taking the share on a loaded host slowed a rank ~5x)."""
+    monkeypatch.setattr(os, "cpu_count", lambda: 8)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    assert [scaling_bench._threads(n) for n in (1, 2)] == [1, 1]
+    monkeypatch.setenv("OMP_NUM_THREADS", "3")
+    assert scaling_bench._threads(4) == 3
+    monkeypatch.delenv("OMP_NUM_THREADS")
+    assert [scaling_bench._threads(n) for n in (1, 2, 16)] == [8, 4, 1]
+
+
+def test_scaling_bench_relaunches_on_a_taken_port(monkeypatch, capsys):
+    """Two ranks whose coordinator port is taken before rank 0 binds it:
+    rank 0 fails at once (EADDRINUSE), the run ends without waiting on rank
+    1, and goes again on another port; one process takes no port."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    with socket.socket() as held:
+        held.bind(("127.0.0.1", 0))
+        held.listen()
+        ports = [held.getsockname()[1]]
+        free = scaling_bench._free_port
+        monkeypatch.setattr(scaling_bench, "_free_port",
+                            lambda: ports.pop() if ports else free())
+        launched = []
+        once = scaling_bench._run_once
+        monkeypatch.setattr(scaling_bench, "_run_once",
+                            lambda n, a, port: launched.append(port) or once(n, a, port))
+        args = argparse.Namespace(batch=2, frames=2, device="cpu", pod=False, drive=False,
+                                  timeout=120)
+        row = scaling_bench.run_processes(2, args)
+    assert "error" not in row, row
+    assert len(launched) == 2 and launched[0] != launched[1]
+    assert "EADDRINUSE" in capsys.readouterr().err
+    assert row["devices"] == 2 and len(row["final_translations"]) == 2
+    launched.clear()
+    assert "error" not in scaling_bench.run_processes(1, args) and launched == [None]
 
 
 def test_parent_skips_soak_ab_without_its_cache(monkeypatch, tmp_path, capsys):

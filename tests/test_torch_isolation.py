@@ -1,11 +1,15 @@
 """The port stands alone: no module of kiss_icp_tpu_torch, no file of its
-ament package ros_torch/, and not chip_smoke.py, imports JAX, the JAX
-package or the root bench.py (the port's bench is tools/bench.py);
-importing every port module builds nothing and needs no card;
-chip_smoke.py refuses to run without one.
+ament package ros_torch/, not chip_smoke.py nor the property runners it
+imports (tests/torch_properties.py), and no code cell of the port's eval
+notebooks (eval_torch/) imports JAX, the JAX package or the root bench.py
+(the port's bench is tools/bench.py); the notebooks are valid nbformat-4
+documents stored without outputs, the twins of eval/'s; importing every
+port module builds nothing and needs no card; chip_smoke.py refuses to run
+without one.
 """
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -15,12 +19,19 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "kiss_icp_tpu_torch"
+NOTEBOOKS = REPO / "eval_torch"
 FORBIDDEN = ("jax", "jaxlib", "kiss_icp_tpu", "bench")  # bench: the root bench.py
 
 
 def _port_files():
     return (sorted(PORT.rglob("*.py")) + sorted((REPO / "ros_torch").rglob("*.py"))
-            + [REPO / "chip_smoke.py"])
+            + [REPO / "chip_smoke.py", REPO / "tests" / "torch_properties.py"])
+
+
+def _code_cells(path):
+    with open(path) as f:
+        nb = json.load(f)
+    return nb, ["".join(c["source"]) for c in nb["cells"] if c["cell_type"] == "code"]
 
 
 def _modules():
@@ -28,8 +39,8 @@ def _modules():
                   for p in PORT.rglob("*.py"))
 
 
-def _imported_roots(path):
-    tree = ast.parse(path.read_text(), filename=str(path))
+def _imported_roots(path, source=None):
+    tree = ast.parse(path.read_text() if source is None else source, filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for alias in node.names:
@@ -42,6 +53,32 @@ def _imported_roots(path):
 def test_source_imports_neither_jax_nor_the_jax_package(path):
     bad = [m for m in _imported_roots(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("path", sorted(NOTEBOOKS.glob("*.ipynb")), ids=lambda p: p.name)
+def test_notebook_cells_import_only_the_port(path):
+    _, cells = _code_cells(path)
+    roots = [m for src in cells for m in _imported_roots(path, src)]
+    bad = [m for m in roots if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+    assert any(m.split(".")[0] == "kiss_icp_tpu_torch" for m in roots), path.name
+
+
+def test_eval_notebooks_valid_and_syntactic():
+    """The port's notebooks are eval/'s six, each a valid nbformat-4
+    document whose code cells compile, stored without outputs, with a
+    DEVICE cell (tests/test_eval_harness.py checks eval/ the same way)."""
+    names = sorted(p.name for p in NOTEBOOKS.glob("*.ipynb"))
+    assert names == sorted(p.name for p in (REPO / "eval").glob("*.ipynb"))
+    for name in names:
+        nb, cells = _code_cells(NOTEBOOKS / name)
+        assert nb["nbformat"] == 4
+        assert cells, name
+        for i, src in enumerate(cells):
+            compile(src, f"{name} cell {i}", "exec")
+        for cell in nb["cells"]:
+            assert not cell.get("outputs"), f"{name}: notebooks are stored without outputs"
+        assert any(src.startswith('DEVICE = "cuda"') for src in cells), name
 
 
 def test_importing_every_module_leaves_jax_out():

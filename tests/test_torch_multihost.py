@@ -18,10 +18,8 @@ The JAX references run here, in the parent.
 """
 
 import os
-import socket
 import subprocess
 import sys
-import time
 
 import numpy as np
 import pytest
@@ -39,7 +37,6 @@ from kiss_icp_tpu_torch.parallel.batch import BatchedOdometry
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WORKER = os.path.join(REPO, "tests", "torch_multihost_worker.py")
 RANK_TIMEOUT_S = 30
 
 
@@ -107,42 +104,8 @@ def test_launch_info_runs():
     assert "process 0/1" in info and info.split(",")[0] == jmultihost.launch_info().split(",")[0]
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _launch(mode, out):
-    """Both ranks of the worker; fails on a rank's non-zero exit or on
-    RANK_TIMEOUT_S (every rank is killed then)."""
-    port = _free_port()
-    procs = []
-    for pid in range(2):
-        env = dict(os.environ, KISS_COORDINATOR=f"127.0.0.1:{port}", KISS_NUM_PROCESSES="2",
-                   KISS_PROCESS_ID=str(pid), KISS_DIST_BACKEND="gloo",
-                   KISS_DIST_TIMEOUT=str(RANK_TIMEOUT_S), OMP_NUM_THREADS="1")
-        procs.append(subprocess.Popen([sys.executable, WORKER, mode, str(out)], env=env,
-                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                      text=True))
-    deadline = time.monotonic() + RANK_TIMEOUT_S
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=max(0.1, deadline - time.monotonic())))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, (stdout, stderr) in zip(procs, outs):
-        assert p.returncode == 0, f"rank failed (rc={p.returncode}):\n{stdout}\n{stderr}"
-        assert ": ok (process" in stdout
-    return np.load(out)
-
-
 def test_two_process_batched_matches_one_process(tmp_path):
-    got = _launch("batched", tmp_path / "batched.npz")
+    got = w.launch("batched", tmp_path / "batched.npz", RANK_TIMEOUT_S)
     cfg = w.batched_config()
     one = BatchedOdometry(cfg, batch=w.GLOBAL_BATCH, device="cpu")
     jmh = jmultihost.MultihostBatchedOdometry(w.batched_config(JaxConfig),
@@ -157,7 +120,7 @@ def test_two_process_batched_matches_one_process(tmp_path):
 
 
 def test_two_rank_sharded_drive_bit_identical_to_one_process(tmp_path):
-    got = _launch("sharded", tmp_path / "sharded.npz")
+    got = w.launch("sharded", tmp_path / "sharded.npz", RANK_TIMEOUT_S)
     icp = odometry.create_odometry(w.sharded_config(), device="cpu")
     assert icp.mesh.axis("map").ranks == 1
     poses, iters = w.sharded_drive(icp, str(tmp_path / "one.ckpt.npz"))

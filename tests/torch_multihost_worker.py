@@ -1,4 +1,5 @@
-"""A rank of the port's two-process gloo tests (tests/test_torch_multihost.py).
+"""A rank of the port's two-process gloo tests (tests/test_torch_multihost.py,
+tests/test_torch_pod_2proc.py).
 
 Launched with KISS_COORDINATOR / KISS_NUM_PROCESSES / KISS_PROCESS_ID set;
 `multihost.initialize_from_env` joins the ranks into a gloo process group.
@@ -13,12 +14,21 @@ Every rank makes the same deterministic inputs and feeds its own share; rank
   sharded  a map-sharded drive with engine.map_shards = 4 as 2 ranks x 2
            local shards: frames, a cross-shard re-base, more frames, a
            checkpoint (gathered from both ranks, written by rank 0).
+  pod      the pod program over a ("seq", "map") grid of 2 x 4, "seq" across
+           the two ranks and each sequence's 4 shards in its rank
+           (tests/pod_worker.py's layout and scans): one chunked step of the
+           global (B, K) scans, each rank taking its own rows; the poses and
+           iterations gathered over "seq".
 
-Usage: python tests/torch_multihost_worker.py MODE OUT.npz
+Usage: python tests/torch_multihost_worker.py MODE OUT.npz (or `launch` from
+a test, which starts both ranks).
 """
 
 import os
+import socket
+import subprocess
 import sys
+import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -27,6 +37,43 @@ import torch  # noqa: E402
 
 from kiss_icp_tpu_torch.config.schema import KISSConfig  # noqa: E402
 from kiss_icp_tpu_torch.parallel import multihost  # noqa: E402
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch(mode, out, timeout_s):
+    """Both ranks of this worker in `mode`, from a test; fails on a rank's
+    non-zero exit or on `timeout_s` (every rank is killed then). Returns
+    what rank 0 wrote to `out`."""
+    import numpy as np
+
+    port = _free_port()
+    procs = []
+    for pid in range(2):
+        env = dict(os.environ, KISS_COORDINATOR=f"127.0.0.1:{port}", KISS_NUM_PROCESSES="2",
+                   KISS_PROCESS_ID=str(pid), KISS_DIST_BACKEND="gloo",
+                   KISS_DIST_TIMEOUT=str(timeout_s), OMP_NUM_THREADS="1")
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), mode,
+                                       str(out)], env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    deadline = time.monotonic() + timeout_s
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(0.1, deadline - time.monotonic())))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (stdout, stderr) in zip(procs, outs):
+        assert p.returncode == 0, f"rank failed (rc={p.returncode}):\n{stdout}\n{stderr}"
+        assert ": ok (process" in stdout
+    return np.load(out)
+
 
 GLOBAL_BATCH = 8
 N_POINTS = 512
@@ -96,6 +143,37 @@ def sharded_drive(icp, ckpt_path):
     return np.stack(poses), np.asarray(iters)
 
 
+POD_BATCH = 4  # tests/pod_worker.py: GLOBAL_BATCH, N_SEQ x N_MAP
+POD_SEQ, POD_MAP = 2, 4
+
+
+def pod_scans():
+    """tests/pod_worker.py's `global_scans`: (B, K, N, 3), each sequence at
+    its own velocity over one base cloud."""
+    rng = np.random.default_rng(13)
+    base = rng.uniform(-30, 30, (N_POINTS, 3)).astype(np.float32)
+    pts = np.zeros((POD_BATCH, N_FRAMES, N_POINTS, 3), np.float32)
+    for i in range(POD_BATCH):
+        vel = np.array([0.2 + 0.08 * i, 0.02 * i, 0], np.float32)
+        for j in range(N_FRAMES):
+            pts[i, j] = base + vel * j
+    return pts, np.zeros(pts.shape[:3], np.float32), np.ones(pts.shape[:3], bool)
+
+
+def pod_run(device="cpu"):
+    """One chunked pod step of `pod_scans` on a POD_SEQ x POD_MAP grid (over
+    the process group's ranks when there is one). Returns the global poses
+    (B, K, 4, 4) and iterations (B, K), gathered over "seq"."""
+    from kiss_icp_tpu_torch.parallel import pod
+
+    cfg = batched_config()  # tests/pod_worker.py's worker_config too
+    mesh = pod.make_pod_mesh(POD_SEQ, POD_MAP, device=device)
+    step = pod.make_pod_chunked_step(cfg, mesh)
+    _, res = step(pod.init_pod_state(cfg, mesh, POD_BATCH), *pod_scans())
+    seq = mesh.axis(pod.SEQ_AXIS)
+    return seq.gather_host(res.pose).numpy(), seq.gather_host(res.num_iterations).numpy()
+
+
 def main() -> int:
     torch.set_num_threads(1)
     mode, out = sys.argv[1], sys.argv[2]
@@ -139,6 +217,10 @@ def main() -> int:
         occupancy = icp.shard_occupancy()
         if rank == 0:
             np.savez(out, poses=poses, iters=iters, occupancy=occupancy)
+    elif mode == "pod":
+        poses, iters = pod_run()
+        if rank == 0:
+            np.savez(out, poses=poses, iters=iters)
     else:
         raise SystemExit(f"unknown mode {mode!r}")
     print(f"worker {rank}: ok ({multihost.launch_info()})", flush=True)
