@@ -21,6 +21,17 @@ non-zero without printing the final result line):
                compact with a too-small view (drops reported, bit-identical)
                and cached (within tests/test_cached_assoc.py's bounds of
                the drive); each also on the small drive, card vs CPU
+     unroll    engine.gn_unroll: the drive at u = 2 and 4 gives the drive's
+               poses and iterations bit for bit in ceil(iterations / u)
+               loop trips a frame; K1 launches = the iterations the loop
+               ran (u a trip, frozen ones included), K2 = K1 + a final count
+               a frame; one frame at each u under
+               torch.cuda.set_sync_debug_mode("warn"): the loop's tests
+               take one sync a trip (and the read that ends it), its body
+               none; the 4-row lockstep drive (phase "batch"'s rows) and
+               map_shards = 2 at u = 2 give their u = 1 bits; p50 and mean
+               ms/frame (one drive of each u), trips,
+               iterations run and launches at u = 1, 2, 4
      options   the drive with deskew_refine = 1, deskew_refine_map and
                ground_align = 0.1 (the verify gates), each on the small
                drive card vs CPU; then the CLI with every option on over 6
@@ -531,6 +542,7 @@ def main() -> int:
           f"max |pose diff| {small_err:.3e}, iterations {small_iters}", flush=True)
 
     mode_launches = phase_modes(cfg, scans, ds, drive, smi)
+    mode_launches.update(phase_unroll(cfg, scans, ds, drive, smi))
     mode_launches.update(phase_options(cfg, scans, ds, smi))
 
     # 7. degradation probes
@@ -713,19 +725,27 @@ def bound(nbytes, flops):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def drive_engine(icp, scans) -> dict:
+def drive_engine(icp, scans, rec=None) -> dict:
     """Drive `icp` over `scans` one frame a call (KissICP.register_frame),
     with the kernels' launch counters set to 0 just before and read just
-    after: poses, iterations, drops, host ms per frame and launches."""
+    after: poses, iterations, drops, host ms per frame and launches; with
+    `rec` (tests/torch_gn_count.py's count, open), the Gauss-Newton loop
+    trips and iterations run of each frame."""
     from kiss_icp_tpu_torch.kernels import linsys, nn27
 
     linsys.build_linear_system.launches = 0
     nn27.query_nearest.launches = 0
     frame_ms, iters, poses, drops, map_drops = [], [], [], 0, 0
+    trips, evals = [], []
     for pts, stamps in scans:
+        if rec is not None:
+            rec.reset()
         t0 = time.perf_counter()
         icp.register_frame(pts, stamps)
         frame_ms.append((time.perf_counter() - t0) * 1e3)
+        if rec is not None:
+            trips.append(rec.total("trips"))
+            evals.append(rec.total("evals"))
         res = icp.last_result
         iters.append(int(res.num_iterations))
         map_drops += int(res.num_dropped_map_voxels)
@@ -733,7 +753,8 @@ def drive_engine(icp, scans) -> dict:
         poses.append(icp.last_pose)
     launches = {"k1": linsys.build_linear_system.launches, "k2": nn27.query_nearest.launches}
     return {"poses": np.stack(poses), "iters": iters, "drops": drops, "map_drops": map_drops,
-            "frame_ms": frame_ms, "p50": float(np.median(frame_ms[1:])), "launches": launches}
+            "frame_ms": frame_ms, "p50": float(np.median(frame_ms[1:])), "launches": launches,
+            "trips": trips, "evals": evals}
 
 
 def check_verify_gates(label: str, run: dict, err) -> None:
@@ -843,6 +864,153 @@ def phase_modes(cfg, scans, ds, drive: dict, smi: str) -> dict:
                      f"{err.max():.4f} m")
         _mode_line(f"modes {name}", run, extra, small_drive(engine), smi)
     return out
+
+
+# The unroll phase: the engine.gn_unroll of each of its drives, one drive
+# each; u = 2 and 4 are held to the drive (u = 1).
+UNROLLS = (1, 2, 4)
+
+
+def phase_unroll(cfg, scans, ds, drive: dict, smi: str) -> dict:
+    """6. engine.gn_unroll on the card, the loops counted from outside
+    (tests/torch_gn_count.py). The drive once at each u of UNROLLS: at
+    every u the drive's poses and iterations bit for bit, ceil(iterations / u) loop trips a frame, u iterations a trip, K1
+    launches = iterations run, K2 = K1 + a final count a frame after the
+    first; p50 and mean ms/frame over its frames 2-12 (one drive cannot
+    resolve the few-percent effect within the host's spread; the A/B is
+    the bench's ab "unroll2" / "unroll4"). One more
+    frame at each u under torch.cuda.set_sync_debug_mode("warn"): the loop
+    body takes no host sync, and the loop's tests one a trip and the read
+    that ends the loop. The 4-row lockstep drive of phase "batch" and
+    map_shards = 2 at u = 2: their u = 1 bits, launches = the iterations
+    run (+ the final counts). Returns each run's launches."""
+    from kiss_icp_tpu_torch.odometry import KissICP
+
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_gn_count
+
+    t0 = time.perf_counter()
+    finals = N_FRAMES - 1  # a final count in every frame after the first
+    out, runs = {}, {}
+    with torch_gn_count.counting() as rec:
+        for u in UNROLLS:
+            icp = KissICP(engine_config(cfg, dict(gn_unroll=u)))
+            run = drive_engine(icp, scans, rec)
+            k, label = run["launches"], f"unroll u={u}"
+            check(np.array_equal(run["poses"], drive["poses"]) and run["iters"] == drive["iters"],
+                  f"{label}: poses or iterations differ from the drive (max |diff| "
+                  f"{np.abs(run['poses'] - drive['poses']).max():.3e})")
+            check(run["trips"] == [-(-it // u) for it in run["iters"]]
+                  and run["evals"] == [t * u for t in run["trips"]],
+                  f"{label}: trips {run['trips']} / iterations run {run['evals']} for "
+                  f"iterations {run['iters']}")
+            check(k["k1"] == sum(run["evals"]) and k["k2"] == k["k1"] + finals,
+                  f"{label}: launches {k} for {sum(run['evals'])} iterations run")
+            if u == 1:
+                check(k == drive["launches"], f"{label}: launches {k}, drive {drive['launches']}")
+            out[label] = k
+            run["syncs"] = sync_frame(icp, scans[-1], rec)
+            runs[u] = run
+
+    def frames_ms(u):  # frames 2-12 of u's drive
+        return runs[u]["frame_ms"][1:]
+
+    base, base_mean = np.median(frames_ms(1)), np.mean(frames_ms(1))
+    for u, run in runs.items():
+        p50, mean = float(np.median(frames_ms(u))), float(np.mean(frames_ms(u)))
+        sy = run["syncs"]
+        check(sy["body"] == 0 and sy["tests"] == sy["trips"] + 1,
+              f"unroll u={u}: {sy['body']} syncs in the loop body, {sy['tests']} in its "
+              f"tests for {sy['trips']} trips")
+        n = len(run["iters"]) - 1
+        print(f"unroll u={u}: p50 {p50:.2f} ms/frame ({p50 / base:.4f} x u=1), mean "
+              f"{mean:.2f} ({mean / base_mean:.4f} x u=1; frames 2-12 of one drive, "
+              f"order {UNROLLS}), per frame {sum(run['trips']) / n:.2f} trips, "
+              f"{sum(run['evals']) / n:.2f} iterations run for {sum(run['iters']) / n:.2f} "
+              f"(trips {run['trips']}), launches K1 {run['launches']['k1']} / K2 "
+              f"{run['launches']['k2']}; poses and iterations bit-identical to the drive; "
+              f"syncs on one more frame: loop tests {sy['tests']} for {sy['trips']} trips, "
+              f"loop body {sy['body']}, kiss/align {sy['align']}, the frame {sy['frame']}; "
+              f"on {smi}", flush=True)
+
+    # The 4-row lockstep drive and map_shards = 2, each at u = 1 and u = 2.
+    gt = ds.gt_poses[:N_FRAMES]
+    row_scans = [rotated(scans, gt, b)[0] for b in range(BATCH_ROWS)]
+    for label, drive_at in (
+            (f"lockstep B={BATCH_ROWS}", lambda u: lockstep_drive(
+                engine_config(cfg, dict(gn_unroll=u)), row_scans)),
+            ("shards D=2", lambda u: sharded_drive(cfg, scans, map_shards=2, gn_unroll=u))):
+        with torch_gn_count.counting() as rec:
+            ref = drive_at(1)
+            ref_evals = rec.total("evals")
+            rec.reset()
+            got = drive_at(2)
+        evals = rec.total("evals")
+        k = out[f"unroll {label} u=2"] = got["launches"]
+        iters = np.asarray(got["iters"])
+        slowest = iters.max(axis=1) if iters.ndim == 2 else iters
+        check(np.array_equal(got["poses"], ref["poses"])
+              and np.array_equal(iters, np.asarray(ref["iters"])),
+              f"unroll {label} u=2: poses or iterations differ from u = 1")
+        check(rec.total("trips") == sum(-(-int(i) // 2) for i in slowest)
+              and evals == 2 * rec.total("trips"),
+              f"unroll {label} u=2: {rec.total('trips')} trips, {evals} iterations run for "
+              f"the slowest rows' {slowest.tolist()}")
+        check(k["k1"] == evals and k["k2"] == evals + finals
+              and ref["launches"]["k1"] == ref_evals,
+              f"unroll {label} u=2: launches {k} for {evals} iterations run "
+              f"(u = 1: {ref['launches']} for {ref_evals})")
+        print(f"unroll {label} u=2: poses and iterations bit-identical to u = 1; "
+              f"{rec.total('trips')} trips, {evals} iterations run, launches K1 {k['k1']} / "
+              f"K2 {k['k2']} (u = 1: {ref_evals} and {ref['launches']}); p50 "
+              f"{got['p50']:.2f} ms/frame against {ref['p50']:.2f} at u = 1; on {smi}",
+              flush=True)
+    print(f"unroll: the phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def sync_frame(icp, scan, rec) -> dict:
+    """One more frame of `icp` (`scan` again, on its map) under
+    torch.cuda.set_sync_debug_mode("warn"), each sync a warning: the syncs
+    of the frame, of its registration (`kiss/align`), and of its
+    Gauss-Newton loop's body and tests, with the loop's trips."""
+    import warnings
+
+    import torch
+
+    from kiss_icp_tpu_torch.ops import registration
+
+    caught = []
+    align_syncs = []
+    real_align = registration.align_points_to_map
+
+    def syncs() -> int:
+        return sum("synchronizing" in str(w.message) for w in caught)
+
+    def align(*a, **k):
+        s0 = syncs()
+        res = real_align(*a, **k)
+        align_syncs.append(syncs() - s0)
+        return res
+
+    rec.reset()
+    registration.align_points_to_map = align
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                rec.syncs = syncs
+                icp.register_frame(*scan)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                rec.syncs = None
+    finally:
+        registration.align_points_to_map = real_align
+    (loop,) = rec.loops
+    return {"frame": syncs(), "align": sum(align_syncs), "trips": loop["trips"],
+            "body": loop["body_syncs"], "tests": loop["cond_syncs"]}
 
 
 def phase_options(cfg, scans, ds, smi: str) -> dict:

@@ -106,8 +106,13 @@ class EngineConfig:
     deskew_refine: int = 0
     # Re-deskew only the map-update cloud with the estimated motion.
     deskew_refine_map: bool = False
-    # GN iterations per loop trip in the JAX package; exactly equivalent to
-    # 1, so the port accepts it and changes nothing.
+    # Gauss-Newton iterations per ICP loop trip, and so per host read of
+    # the convergence test (ops/registration.gauss_newton_loop; below 1
+    # reads as 1, as in the JAX package). Same trajectory and iteration
+    # counts as 1: an iteration whose solve has converged keeps its state,
+    # so a solve runs up to gn_unroll - 1 such frozen iterations (their
+    # kernel launches included) at its end. Every loop JAX unrolls follows
+    # it; nn_mode "cached" and parallel/sharded_icp.py stay at 1, as there.
     gn_unroll: int = 1
     # Ground-plane attitude stabilization strength (0 = off, reference
     # semantics; ops/ground.py).

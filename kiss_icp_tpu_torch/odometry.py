@@ -234,6 +234,7 @@ def register_frame(
                 assoc_cache_size=int(e.assoc_cache_size),
                 assoc_refresh_dist=(float(e.assoc_refresh_dist)
                                     if float(e.assoc_refresh_dist) > 0 else 0.25 * vsize),
+                gn_unroll=int(e.gn_unroll),
             )
         return prep, frame_ds, source, align
 
@@ -389,7 +390,8 @@ def register_frame_batched(
                 torch.stack([f[1] for f in fronts]), 3.0 * sigmas, sigmas,
                 max_iterations=int(config.registration.max_num_iterations),
                 convergence=float(config.registration.convergence_criterion),
-                linsys_fn=linsys_fn, any_active_fn=any_active_fn)
+                linsys_fn=linsys_fn, any_active_fn=any_active_fn,
+                gn_unroll=int(config.engine.gn_unroll))
         outs = []
         for b, (row, (sigma, guess, prep, frame_ds, source)) in enumerate(zip(rows, fronts)):
             pose = align.pose[b]
@@ -659,7 +661,7 @@ class KissICP:
     def dispatch_chunk(self, chunk: PackedChunk, input_dropped: int = 0) -> ChunkSummary:
         """Run one K-frame chunk (`build_chunk`) and return its summary on
         the device. It returns once the host has issued all K frames: the
-        GN loop reads one scalar per iteration, so unlike the JAX package's
+        GN loop reads one scalar per loop trip, so unlike the JAX package's
         asynchronous dispatch there is no window in which the host could
         pack the next chunk while the device works. `summary_poses` reads
         the poses."""

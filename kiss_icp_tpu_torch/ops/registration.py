@@ -2,11 +2,12 @@
 
 Port of `kiss_icp_tpu/ops/registration.py` (reference Registration.cpp:
 52-167). The ICP loop is a `control.while_loop` over its carry, as JAX's
-`lax.while_loop`: run live, one scalar read per iteration (the convergence
-test); under `torch.export`, a `torch.while_loop`. Each iteration runs an
-NN query (the fused NN kernel, kernels/nn27.py, in most modes; see
-`align_points_to_map`) and the normal-equation kernel (kernels/linsys.py)
-on CUDA tensors, or their plain versions on CPU tensors.
+`lax.while_loop`: run live, one scalar read per loop trip (the convergence
+test), a trip being `engine.gn_unroll` iterations; under `torch.export`, a
+`torch.while_loop`. Each iteration runs an NN query (the fused NN kernel,
+kernels/nn27.py, in most modes; see `align_points_to_map`) and the
+normal-equation kernel (kernels/linsys.py) on CUDA tensors, or their plain
+versions on CPU tensors.
 
 Recentering for float32, as in the JAX package: the linear system is built
 with lever arms about the current sensor position `c` (source - c), and the
@@ -116,6 +117,7 @@ def gauss_newton_loop(
     max_iterations: int,
     convergence: float,
     any_active_fn: Optional[Callable] = None,
+    unroll: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The ICP loop (reference Registration.cpp:151-164; JAX
     `registration.gauss_newton_loop`).
@@ -129,15 +131,27 @@ def gauss_newton_loop(
     `max_iterations`. Returns (t_icp (4, 4), iterations () int32) with final
     pose = t_icp @ guess.
 
+    `unroll` (`engine.gn_unroll`; below 1 reads as 1, as in JAX): the
+    iterations run per loop trip, the convergence test (live, the one host
+    read) once a trip. An iteration that finds its solve converged or at
+    `max_iterations` keeps its carry, so the trajectory and the iteration
+    count are those of `unroll` = 1 bit for bit; a trip's frozen iterations
+    still run the query and the normal equations (their launches on the
+    card), and their results are dropped without a host read. A trip's
+    first iteration needs no freeze on one process: at `unroll` 1 the body
+    is the loop's plain iteration.
+
     `any_active_fn(running) -> running anywhere` (JAX's `any_active_fn`):
     when several processes share the loop's collectives, every one must run
     the same number of trips; a process whose own loop is done keeps its
-    carry while the others run (the JAX body's freeze).
+    carry while the others run (the JAX body's freeze), the same `unroll`
+    iterations a trip.
     """
     guess = initial_guess.to(torch.float32)
     src0 = se3.transform(guess, points)
     center = guess[:3, 3].contiguous()  # the K1 kernel reads it by pointer
     dev = points.device
+    unroll = max(1, int(unroll))
 
     def running(it, done):
         return (it < max_iterations) & ~done
@@ -146,16 +160,24 @@ def gauss_newton_loop(
         run = running(it, done)
         return run if any_active_fn is None else any_active_fn(run)
 
-    def body(src, t_icp, it, done):
+    def iteration(freeze, src, t_icp, it, done):
         dist, neighbors = query_fn(src)
         corr = torch.isfinite(dist) & valid & (dist < max_distance)
         dx = solve_increment(linsys_fn(src, neighbors, corr, kernel_scale, center))
         new_src, new_t, step = _apply_increment(dx, center, src, t_icp)
-        if any_active_fn is None:
+        if not freeze:
             return new_src, new_t, it + 1, step < convergence
         run = running(it, done)
         return (torch.where(run, new_src, src), torch.where(run, new_t, t_icp),
                 it + run.to(torch.int32), done | (run & (step < convergence)))
+
+    def body(*carry):
+        # A trip's first iteration runs the solve: the test just read it
+        # running (on one process; across processes, it may be another's).
+        carry = iteration(any_active_fn is not None, *carry)
+        for _ in range(unroll - 1):
+            carry = iteration(True, *carry)
+        return carry
 
     _, t_icp, it, _ = control.while_loop(cond, body, (
         src0, se3.identity(device=dev), torch.zeros((), dtype=torch.int32, device=dev),
@@ -246,6 +268,7 @@ def align_points_to_map(
     nn_probe_length: int = 8,
     assoc_cache_size: int = 8,
     assoc_refresh_dist: float = 0.25,
+    gn_unroll: int = 1,
 ) -> AlignResult:
     """Register one body-frame source scan against the local map.
 
@@ -266,7 +289,9 @@ def align_points_to_map(
       * "cached": `gauss_newton_loop_cached` over hash_map.query_topc's
         `assoc_cache_size` candidates, re-gathered past `assoc_refresh_dist`.
 
-    The final correspondence count goes through the mode's own query.
+    `gn_unroll` goes to `gauss_newton_loop` (every mode but "cached", whose
+    loop JAX does not unroll either). The final correspondence count goes
+    through the mode's own query.
     """
     # The kernels' wrappers import this module for the plain versions.
     from kiss_icp_tpu_torch.kernels import linsys, nn27
@@ -312,7 +337,7 @@ def align_points_to_map(
             t_icp, iters = gauss_newton_loop(
                 points, valid, guess, max_distance, kernel_scale,
                 query_fn=query_fn, linsys_fn=linsys.build_linear_system,
-                max_iterations=max_iterations, convergence=convergence)
+                max_iterations=max_iterations, convergence=convergence, unroll=gn_unroll)
 
         pose = t_icp @ guess
         # Final correspondence count for diagnostics (one extra association).
@@ -380,6 +405,7 @@ def gauss_newton_loop_lockstep(
     max_iterations: int,
     convergence: float,
     any_active_fn: Optional[Callable] = None,
+    unroll: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`gauss_newton_loop` for B rows in lockstep (JAX: the loop under
     `jax.vmap`): points (B,N,3), valid (B,N), initial_guess (B,4,4),
@@ -393,14 +419,18 @@ def gauss_newton_loop_lockstep(
     row still running; a row that has converged or run `max_iterations`
     keeps its carry, as `vmap`'s frozen rows do, so its result is its own
     `gauss_newton_loop`. The loop ends once no row runs: one host read per
-    iteration, whatever B. Returns (t_icp (B,4,4), iterations (B,) int32).
-    `any_active_fn` as in `gauss_newton_loop`: the loop then runs while a
-    row runs in any process that shares its collectives.
+    trip of `unroll` iterations (as in `gauss_newton_loop`), whatever B.
+    Each iteration passes its own running rows to query_fn and linsys_fn,
+    so a row frozen within a trip costs the kernels no work. Returns
+    (t_icp (B,4,4), iterations (B,) int32). `any_active_fn` as in
+    `gauss_newton_loop`: the loop then runs while a row runs in any process
+    that shares its collectives.
     """
     guess = initial_guess.to(torch.float32)
     src0 = transform_rows(guess, points)
     center = guess[:, :3, 3].contiguous()  # the K1 kernel reads it by pointer
     b, dev = points.shape[0], points.device
+    unroll = max(1, int(unroll))
 
     def running(it, done):
         return (it < max_iterations) & ~done
@@ -409,7 +439,7 @@ def gauss_newton_loop_lockstep(
         run = torch.any(running(it, done))
         return run if any_active_fn is None else any_active_fn(run)
 
-    def body(src, t_icp, it, done):
+    def iteration(src, t_icp, it, done):
         run = running(it, done)
         dist, neighbors = query_fn(src, run)
         corr = torch.isfinite(dist) & valid & (dist < max_distance[:, None])
@@ -419,6 +449,11 @@ def gauss_newton_loop_lockstep(
                 torch.where(run[:, None, None], new_t, t_icp),
                 it + run.to(torch.int32),
                 done | (run & (step < convergence)))
+
+    def body(*carry):
+        for _ in range(unroll):
+            carry = iteration(*carry)
+        return carry
 
     eye = se3.identity(device=dev).expand(b, 4, 4).contiguous()
     _, t_icp, it, _ = control.while_loop(cond, body, (
@@ -445,6 +480,7 @@ def align_lockstep(
     convergence: float,
     linsys_fn: Optional[Callable] = None,
     any_active_fn: Optional[Callable] = None,
+    gn_unroll: int = 1,
 ) -> LockstepAlign:
     """`align_points_to_map` (nn_mode gather27 / pallas_fused) for B rows
     against their B stacked maps (every table of `m` with a leading B), with
@@ -454,9 +490,9 @@ def align_lockstep(
     correspondences, as the unbatched empty-map branch does. The final
     correspondence count is one more batched query, skipped (no launch) when
     every map is empty. `linsys_fn` (default: the batched K1,
-    kernels/linsys.build_linear_systems) and `any_active_fn` as in
-    `gauss_newton_loop_lockstep`: the "pts" axis of parallel/batch.py
-    passes its block sums."""
+    kernels/linsys.build_linear_systems), `any_active_fn` and `gn_unroll`
+    (its `unroll`) as in `gauss_newton_loop_lockstep`: the "pts" axis of
+    parallel/batch.py passes its block sums."""
     from kiss_icp_tpu_torch.kernels import linsys, nn27
 
     guess = initial_guess.to(torch.float32)
@@ -469,7 +505,8 @@ def align_lockstep(
     t_icp, iters = gauss_newton_loop_lockstep(
         points, valid, guess, max_distance, kernel_scale, present,
         query_fn=query_fn, linsys_fn=linsys_fn or linsys.build_linear_systems,
-        max_iterations=max_iterations, convergence=convergence, any_active_fn=any_active_fn)
+        max_iterations=max_iterations, convergence=convergence, any_active_fn=any_active_fn,
+        unroll=gn_unroll)
     pose = torch.where(present[:, None, None], t_icp @ guess, guess)
     if bool(torch.any(present)):
         q = nn27.query_nearest_batched(cfg, m, transform_rows(pose, points), valid, present)

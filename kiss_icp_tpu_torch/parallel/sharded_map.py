@@ -205,9 +205,10 @@ def frame_step_shard(
     Per GN iteration: one batched K2 launch with the L local shards as rows
     (the same queries each row), the ring combine over the gathered D rows,
     one batched K1 launch with the L stripes as rows, the sums over D in
-    shard order, and the loop's one host read (all-reduced over the axis's
-    ranks, so every rank runs the same trip count). An empty map on every
-    shard skips the loop and the final count: no launch.
+    shard order; and per trip of `engine.gn_unroll` iterations the loop's
+    one host read (all-reduced over the axis's ranks, so every rank runs
+    the same trip count). An empty map on every shard skips the loop and
+    the final count: no launch.
     """
     vsize = float(config.mapping.voxel_size)
     n_shards, n_local = axis.extent, axis.local
@@ -260,7 +261,8 @@ def frame_step_shard(
             query_fn=query_fn, linsys_fn=linsys_fn,
             max_iterations=int(config.registration.max_num_iterations),
             convergence=float(config.registration.convergence_criterion),
-            any_active_fn=axis.any if axis.ranks > 1 else None)
+            any_active_fn=axis.any if axis.ranks > 1 else None,
+            unroll=int(config.engine.gn_unroll))
         aligned = t_icp @ guess
         pose_finite = torch.all(torch.isfinite(aligned))
         new_pose = torch.where(pose_finite, aligned, guess)

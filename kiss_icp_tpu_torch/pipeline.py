@@ -190,7 +190,7 @@ class OdometryPipeline:
         i's poses. In JAX the packing overlaps the device's work on chunk i,
         because its dispatch is asynchronous. In the port, `dispatch_chunk`
         returns only after the host has issued all K frames (the GN loop
-        reads one scalar per iteration), so that overlap window is empty:
+        reads one scalar per loop trip), so that overlap window is empty:
         packing runs after the device work, not beside it. The order is kept
         for when the chunk runs without host reads. Per-frame times are the
         chunk average of dispatch-to-dispatch wall, i.e. honest end-to-end

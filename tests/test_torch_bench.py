@@ -6,6 +6,9 @@ bench.py, and tools/scaling_bench.py's --drive windows, on the CPU.
   * the config, the association byte model and the scan arrays equal the
     root bench's (the scans: JAX's SyntheticDataset padded as root
     bench.py:255-262 pads);
+  * the engine.gn_unroll A/B as the root bench's: the ab child's "unroll2" /
+    "unroll4" and soak_ab's "unroll2" run gn_unroll 2 / 4 / 2 (their configs
+    read, no drive);
   * the chunked, streaming and robust children at a small config
     (`--device cpu`, 16 x 128 beams, 2^14 slots): poses within 1e-4 m of
     JAX's make_chunked_step / make_step on the same scans, iterations equal,
@@ -115,6 +118,61 @@ def test_scans_equal_the_root_bench_drive(tmp_path, monkeypatch):
         np.testing.assert_array_equal(got[0], ds.gt_poses[:2])
         for a, b in zip(got[1:], ref):
             assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def _tiny_scans(cfg, n_frames):
+    """Stand-in scans (no render) for the children whose configs are read."""
+    cap = 8
+    return (np.tile(np.eye(4), (n_frames, 1, 1)), np.zeros((n_frames, cap, 3), np.float32),
+            np.zeros((n_frames, cap), np.float32), np.zeros((n_frames, cap), bool))
+
+
+def test_ab_variants_set_gn_unroll(monkeypatch):
+    """The ab child's "unroll2" and "unroll4" run engine.gn_unroll 2 and 4,
+    right after the default, and every variant the port keeps is the root
+    bench's (storage, probe length, nn_mode, unroll). The configs are read
+    from the chunked steps the child makes; no step runs."""
+    from kiss_icp_tpu_torch import odometry
+
+    made = {}
+
+    def make_chunked_step(cfg):
+        made[len(made)] = cfg
+        return lambda state, *arrays: (state, None)
+
+    monkeypatch.setattr(bench, "_scans", _tiny_scans)
+    monkeypatch.setattr(odometry, "make_chunked_step", make_chunked_step)
+    monkeypatch.setattr(odometry, "init_state", lambda cfg, dev=None: None)
+    out = bench.child_ab(device="cpu")
+    names = list(bench.AB_VARIANTS)
+    assert names[:3] == ["pallas", "unroll2", "unroll4"] and set(names) <= set(out)
+    unrolls = {name: made[i].engine.gn_unroll for i, name in enumerate(names)}
+    assert unrolls == {n: {"unroll2": 2, "unroll4": 4}.get(n, 1) for n in names}
+    for i, name in enumerate(names):
+        e = made[i].engine
+        assert (e.map_storage, e.probe_length, e.nn_mode, e.gn_unroll) == \
+            tuple(jbench.AB_VARIANTS[name][1:]), name
+
+
+def test_soak_ab_unroll2_sets_gn_unroll(monkeypatch):
+    """soak_ab's "unroll2" is gather27 at engine.gn_unroll 2, in the root
+    bench's order; its configs are read from the soak drives it asks for."""
+    cfgs = {}
+
+    def soak_drive(cfg, host, n_total, dev):
+        cfgs[len(cfgs)] = cfg
+        return [10.0, 10.0], None, None, None
+
+    monkeypatch.setattr(bench, "_scan_cache_ready", lambda cfg, n: True)
+    monkeypatch.setattr(bench, "_scans", _tiny_scans)
+    monkeypatch.setattr(bench, "_soak_drive", soak_drive)
+    out = bench.child_soak_ab(device="cpu")
+    assert bench.SOAK_AB_VARIANTS == jbench.SOAK_AB_VARIANTS
+    assert set(bench.SOAK_AB_VARIANTS) <= set(out)
+    got = {name: (cfgs[i].engine.nn_mode, cfgs[i].engine.gn_unroll)
+           for i, name in enumerate(bench.SOAK_AB_VARIANTS)}
+    assert got == {n: ("gather27", 2) if n == "unroll2" else (n, 1)
+                   for n in bench.SOAK_AB_VARIANTS}
 
 
 def test_peak_hbm_by_card_name():

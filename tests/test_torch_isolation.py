@@ -1,6 +1,7 @@
 """The port stands alone: no module of kiss_icp_tpu_torch, no file of its
-ament package ros_torch/, not chip_smoke.py nor the property runners it
-imports (tests/torch_properties.py), and no code cell of the port's eval
+ament package ros_torch/, not chip_smoke.py nor the test helpers it
+imports (the property runners tests/torch_properties.py, the loop count
+tests/torch_gn_count.py), and no code cell of the port's eval
 notebooks (eval_torch/) imports JAX, the JAX package or the root bench.py
 (the port's bench is tools/bench.py); the notebooks are valid nbformat-4
 documents stored without outputs, the twins of eval/'s; importing every
@@ -25,7 +26,8 @@ FORBIDDEN = ("jax", "jaxlib", "kiss_icp_tpu", "bench")  # bench: the root bench.
 
 def _port_files():
     return (sorted(PORT.rglob("*.py")) + sorted((REPO / "ros_torch").rglob("*.py"))
-            + [REPO / "chip_smoke.py", REPO / "tests" / "torch_properties.py"])
+            + [REPO / "chip_smoke.py", REPO / "tests" / "torch_properties.py",
+               REPO / "tests" / "torch_gn_count.py"])
 
 
 def _code_cells(path):

@@ -9,12 +9,14 @@
     compact and compact_loop against JAX's KissICP: poses within atol 1e-4,
     iteration and correspondence counts equal. In the port the four modes,
     and pallas_fused, give the same poses bit for bit.
-  * gn_unroll 1, 2 and 3 give identical results.
+  * gn_unroll 1, 2 and 3 give identical results, in fewer loop trips
+    (counted by tests/torch_gn_count.py).
   * A compact view too small for the map reports JAX's drop count through
     FrameResult.num_dropped_map_voxels, its frames match gather27 through
     the sparse fallback, and the pipeline warns.
 """
 
+import math
 import warnings
 
 import numpy as np
@@ -22,6 +24,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_gn_count
 from kiss_icp_tpu import odometry as jodo
 from kiss_icp_tpu.config.schema import KISSConfig as JaxConfig
 from kiss_icp_tpu.ops import compact_map as jcm
@@ -107,33 +110,48 @@ def scans():
     return [ds[i] for i in range(N_FRAMES)]
 
 
-def _drive(icp, scans):
+def _drive(icp, scans, trips):
+    """The drive's poses, iterations, correspondences and drops; `trips`
+    receives each frame's Gauss-Newton loop trips (tests/torch_gn_count.py;
+    0 for JAX's engine, which the count does not see)."""
     poses, iters, corr, drops = [], [], [], []
-    for pts, stamps in scans:
-        icp.register_frame(pts, stamps)
-        res = icp.last_result
-        poses.append(icp.last_pose)
-        iters.append(int(res.num_iterations))
-        corr.append(int(res.num_correspondences))
-        drops.append(int(res.num_dropped_map_voxels))
+    with torch_gn_count.counting() as rec:
+        for pts, stamps in scans:
+            rec.reset()
+            icp.register_frame(pts, stamps)
+            trips.append(rec.total("trips"))
+            res = icp.last_result
+            poses.append(icp.last_pose)
+            iters.append(int(res.num_iterations))
+            corr.append(int(res.num_correspondences))
+            drops.append(int(res.num_dropped_map_voxels))
     return np.stack(poses), iters, corr, drops
 
 
 @pytest.fixture(scope="module")
 def runs(scans):
-    """Each (package, mode) drive, run once for the module."""
-    cache = {}
+    """Each (package, mode) drive, run once for the module; `run.trips(...)`
+    gives a drive's loop trips per frame."""
+    cache, trips = {}, {}
+
+    def key_of(package, nn_mode, engine):
+        return package, nn_mode, tuple(sorted(engine.items()))
 
     def run(package, nn_mode, **engine):
-        key = (package, nn_mode, tuple(sorted(engine.items())))
+        key = key_of(package, nn_mode, engine)
         if key not in cache:
             if package == "jax":
                 icp = jodo.KissICP(_config(JaxConfig, nn_mode, **engine))
             else:
                 icp = odometry.KissICP(_config(KISSConfig, nn_mode, **engine), device="cpu")
-            cache[key] = _drive(icp, scans)
+            cache[key] = _drive(icp, scans, trips.setdefault(key, []))
         return cache[key]
 
+    def trips_of(package, nn_mode, **engine):
+        run(package, nn_mode, **engine)
+        return trips[key_of(package, nn_mode, engine)]
+
+    run.trips = trips_of
     return run
 
 
@@ -159,6 +177,10 @@ def test_gn_unroll_changes_nothing(runs, unroll):
     ref, got = runs("port", "gather27"), runs("port", "gather27", gn_unroll=unroll)
     np.testing.assert_array_equal(got[0], ref[0])
     assert got[1:] == ref[1:]
+    # ...but the loop's trips: one convergence read a trip of `unroll` iterations.
+    trips = runs.trips("port", "gather27", gn_unroll=unroll)
+    assert trips == [math.ceil(it / unroll) for it in got[1]]
+    assert sum(trips) < sum(runs.trips("port", "gather27")) == sum(ref[1])
 
 
 def test_compact_overflow_reaches_frame_result(runs):

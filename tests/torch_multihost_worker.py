@@ -14,14 +14,16 @@ Every rank makes the same deterministic inputs and feeds its own share; rank
   sharded  a map-sharded drive with engine.map_shards = 4 as 2 ranks x 2
            local shards: frames, a cross-shard re-base, more frames, a
            checkpoint (gathered from both ranks, written by rank 0).
+  unroll   `unroll_drive` (map_shards = 4 as 2 ranks x 2) at each
+           engine.gn_unroll of argv[3] ("2,3,4"): poses_u<u>, iters_u<u>.
   pod      the pod program over a ("seq", "map") grid of 2 x 4, "seq" across
            the two ranks and each sequence's 4 shards in its rank
            (tests/pod_worker.py's layout and scans): one chunked step of the
            global (B, K) scans, each rank taking its own rows; the poses and
            iterations gathered over "seq".
 
-Usage: python tests/torch_multihost_worker.py MODE OUT.npz (or `launch` from
-a test, which starts both ranks).
+Usage: python tests/torch_multihost_worker.py MODE OUT.npz [UNROLLS] (or
+`launch` from a test, which starts both ranks).
 """
 
 import os
@@ -44,12 +46,13 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch(mode, out, timeout_s):
-    """Both ranks of this worker in `mode`, from a test; fails on a rank's
-    non-zero exit or on `timeout_s` (every rank is killed then). Returns
-    what rank 0 wrote to `out`."""
+def launch(mode, out, timeout_s, unrolls=()):
+    """Both ranks of this worker in `mode` (at each of `unrolls`, when
+    given), from a test; fails on a rank's non-zero exit or on `timeout_s`
+    (every rank is killed then). Returns what rank 0 wrote to `out`."""
     import numpy as np
 
+    extra = [",".join(str(u) for u in unrolls)] if unrolls else []
     port = _free_port()
     procs = []
     for pid in range(2):
@@ -57,7 +60,7 @@ def launch(mode, out, timeout_s):
                    KISS_PROCESS_ID=str(pid), KISS_DIST_BACKEND="gloo",
                    KISS_DIST_TIMEOUT=str(timeout_s), OMP_NUM_THREADS="1")
         procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), mode,
-                                       str(out)], env=env, stdout=subprocess.PIPE,
+                                       str(out)] + extra, env=env, stdout=subprocess.PIPE,
                                       stderr=subprocess.PIPE, text=True))
     deadline = time.monotonic() + timeout_s
     outs = []
@@ -143,6 +146,37 @@ def sharded_drive(icp, ckpt_path):
     return np.stack(poses), np.asarray(iters)
 
 
+def unroll_config(unroll, cls=KISSConfig):
+    """tests/test_registration.py:148-159's config at map_shards = 4 and
+    engine.gn_unroll = `unroll`."""
+    cfg = cls()
+    cfg.data.max_range = 30.0
+    cfg.data.min_range = 1.0
+    cfg.mapping.voxel_size = 1.0
+    cfg.engine.max_points_per_frame = 4096
+    cfg.engine.frame_capacity = 2048
+    cfg.engine.source_capacity = 512
+    cfg.engine.map_capacity_log2 = 14
+    cfg.engine.map_shards = SHARDS
+    cfg.engine.gn_unroll = unroll
+    return cfg
+
+
+def unroll_drive(icp, k=4):
+    """k frames of tests/test_registration.py's drive (16 x 256 beams), whose
+    solves take 5-9 iterations. Returns (poses (k,4,4) f64, iterations)."""
+    from kiss_icp_tpu_torch.datasets.synthetic import SyntheticDataset
+
+    ds = SyntheticDataset(sequence=0, n_scans=k, n_beams=16, n_azimuth=256,
+                          max_range=30.0, speed=1.0, accel_frames=3)
+    poses, iters = [], []
+    for i in range(k):
+        icp.register_frame(*ds[i])
+        poses.append(icp.last_pose)
+        iters.append(int(icp.last_result.num_iterations))
+    return np.stack(poses), np.asarray(iters)
+
+
 POD_BATCH = 4  # tests/pod_worker.py: GLOBAL_BATCH, N_SEQ x N_MAP
 POD_SEQ, POD_MAP = 2, 4
 
@@ -206,6 +240,16 @@ def main() -> int:
             raise AssertionError("a non-CPU payload crossed the gloo group")
         if rank == 0:
             np.savez(out, poses=poses, poses_pts=poses_pts)
+    elif mode == "unroll":
+        from kiss_icp_tpu_torch import odometry
+
+        arrays = {}
+        for u in (int(x) for x in sys.argv[3].split(",")):
+            icp = odometry.create_odometry(unroll_config(u), device="cpu")
+            assert icp.mesh.axis("map").local == 2
+            arrays[f"poses_u{u}"], arrays[f"iters_u{u}"] = unroll_drive(icp)
+        if rank == 0:
+            np.savez(out, **arrays)
     elif mode == "sharded":
         from kiss_icp_tpu_torch import odometry
 
