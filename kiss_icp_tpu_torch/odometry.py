@@ -37,8 +37,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from kiss_icp_tpu_torch import trace
 from kiss_icp_tpu_torch.config.schema import KISSConfig
 from kiss_icp_tpu_torch.ops import (ground, hash_map, preprocess, registration,
                                     se3, threshold, voxel)
@@ -110,20 +110,21 @@ def _sigma_for_frame(config: KISSConfig, state: OdometryState) -> torch.Tensor:
     fixed = config.adaptive_threshold.fixed_threshold
     if fixed is not None:
         return voxel.f32_scalar(float(fixed), state.pose.device)
-    return threshold.compute_threshold(state.threshold)
+    with trace.span("kiss/threshold"):
+        return threshold.compute_threshold(state.threshold)
 
 
 def _deskew_downsample(config: KISSConfig, points, timestamps, valid, deskew_delta):
     """Steps 1-2 for one deskew hypothesis: motion-compensate the raw scan
     with `deskew_delta`, crop, and build the map-update cloud."""
-    with record_function("kiss/preprocess"):
+    with trace.span("kiss/preprocess"):
         prep = preprocess.preprocess(
             points, timestamps, valid, deskew_delta,
             max_range=float(config.data.max_range),
             min_range=float(config.data.min_range),
             deskew=bool(config.data.deskew),
         )
-    with record_function("kiss/downsample"):
+    with trace.span("kiss/downsample"):
         frame_ds = voxel.voxel_downsample(
             prep.points, prep.valid, voxel_size=float(config.mapping.voxel_size) * 0.5,
             capacity=int(config.engine.frame_capacity))
@@ -132,7 +133,7 @@ def _deskew_downsample(config: KISSConfig, points, timestamps, valid, deskew_del
 
 def _source_cloud(config: KISSConfig, frame_ds):
     """Step 3: the ICP source, the map-update cloud downsampled at 1.5 v."""
-    with record_function("kiss/downsample"):
+    with trace.span("kiss/downsample"):
         return voxel.voxel_downsample(
             frame_ds.points, frame_ds.valid,
             voxel_size=float(config.mapping.voxel_size) * 1.5,
@@ -148,24 +149,25 @@ def _finish_frame(config: KISSConfig, state: OdometryState, prep, frame_ds, sour
     mcfg = map_config(config)
     # 5d. Ground-plane attitude stabilization (engine.ground_align > 0,
     #    ops/ground.py), fitted on the half-voxel cloud.
-    with record_function("kiss/ground"):
+    with trace.span("kiss/ground"):
         new_pose = ground.maybe_align(config, frame_ds.points, frame_ds.valid, new_pose)
 
     # 6.-7. Model deviation feeds the threshold estimator.
-    model_deviation = se3.inverse(initial_guess) @ new_pose
-    new_threshold = threshold.update_model_deviation(
-        state.threshold, model_deviation,
-        max_range=float(config.data.max_range),
-        min_motion_th=float(config.adaptive_threshold.min_motion_th),
-    )
+    with trace.span("kiss/threshold"):
+        model_deviation = se3.inverse(initial_guess) @ new_pose
+        new_threshold = threshold.update_model_deviation(
+            state.threshold, model_deviation,
+            max_range=float(config.data.max_range),
+            min_motion_th=float(config.adaptive_threshold.min_motion_th),
+        )
 
     # 8. Merge the scan into the local map, then trim far voxels
     #    (reference VoxelHashMap::Update, VoxelHashMap.cpp:83-95).
-    with record_function("kiss/map_insert"):
+    with trace.span("kiss/map_insert"):
         world_points = se3.transform(new_pose, frame_ds.points)
         m = state.map if donate else copy_map(state.map)
         new_map, insert_stats = hash_map.insert(mcfg, m, world_points, frame_ds.valid)
-    with record_function("kiss/map_trim"):
+    with trace.span("kiss/map_trim"):
         new_map = hash_map.trim(mcfg, new_map, new_pose[:3, 3])
 
     # 9. Constant-velocity bookkeeping.
@@ -192,6 +194,7 @@ def _finish_frame(config: KISSConfig, state: OdometryState, prep, frame_ds, sour
     return new_state, result
 
 
+@trace.spanned("kiss/frame")
 def register_frame(
     config: KISSConfig,
     state: OdometryState,
@@ -206,9 +209,10 @@ def register_frame(
     points (N, 3) f32, timestamps (N,) f32, valid (N,) bool, on the state's
     device. `donate` (default `engine.donate_state`): update the caller's
     map in place, or leave the caller's state as it was (see the module
-    docstring). Each stage runs under a `kiss/<stage>` profiler span
-    (tools/profile_drive.py reads them; without a profiler they cost a few
-    microseconds a frame).
+    docstring). The frame runs in the profiler span `kiss/frame`, each
+    stage in its own `kiss/<stage>` span and each host read in a
+    `kiss/sync/<site>` span (trace.py; tools/profile_drive.py reads them).
+    Without a profiler a span costs one read of the profiler's flag.
     """
     mcfg = map_config(config)
     vsize = float(config.mapping.voxel_size)
@@ -222,7 +226,7 @@ def register_frame(
         registration against the map from `guess`."""
         prep, frame_ds = _deskew_downsample(config, points, timestamps, valid, deskew_delta)
         source = _source_cloud(config, frame_ds)
-        with record_function("kiss/align"):
+        with trace.span("kiss/align"):
             align = registration.align_points_to_map(
                 mcfg, state.map, source.points, source.valid, guess,
                 3.0 * sigma, sigma,
@@ -333,6 +337,7 @@ def store_rows(state: OdometryState, rows) -> OdometryState:
     )
 
 
+@trace.spanned("kiss/frame")
 def register_frame_batched(
     config: KISSConfig,
     state: OdometryState,
@@ -382,7 +387,7 @@ def register_frame_batched(
                                                 row.delta)
             fronts.append((sigma, guess, prep, frame_ds, _source_cloud(config, frame_ds)))
         sigmas = torch.stack([f[0] for f in fronts])
-        with record_function("kiss/align"):
+        with trace.span("kiss/align"):
             align = registration.align_lockstep(
                 map_config(config), state.map,
                 torch.stack([f[4].points for f in fronts]),
@@ -482,16 +487,17 @@ def make_chunked_step(config: KISSConfig, donate: Optional[bool] = None):
         def stacked(name):
             return torch.stack([getattr(r, name) for r in results])
 
-        return state, ChunkSummary(
-            poses=stacked("pose"),
-            sigmas=stacked("sigma"),
-            num_iterations=stacked("num_iterations"),
-            num_correspondences=stacked("num_correspondences"),
-            num_dropped_downsample=stacked("num_dropped_downsample"),
-            num_dropped_map_voxels=stacked("num_dropped_map_voxels"),
-            num_oob_points=stacked("num_oob_points"),
-            used_fallback=stacked("used_fallback"),
-        )
+        with trace.span("kiss/summary"):
+            return state, ChunkSummary(
+                poses=stacked("pose"),
+                sigmas=stacked("sigma"),
+                num_iterations=stacked("num_iterations"),
+                num_correspondences=stacked("num_correspondences"),
+                num_dropped_downsample=stacked("num_dropped_downsample"),
+                num_dropped_map_voxels=stacked("num_dropped_map_voxels"),
+                num_oob_points=stacked("num_oob_points"),
+                used_fallback=stacked("used_fallback"),
+            )
 
     return chunk
 
@@ -616,10 +622,12 @@ class KissICP:
         valid[:n] = True
         valid[n:] = False
 
+    @trace.spanned("kiss/pack")
     def build_chunk(self, frames, timestamps_list=None) -> Tuple[PackedChunk, int]:
         """Pack K numpy scans into one padded chunk buffer, 17 B a point
         (pinned host memory when the engine runs on CUDA, so that
-        `dispatch_chunk` moves it in one asynchronous copy).
+        `dispatch_chunk` moves it in one asynchronous copy), in the span
+        `kiss/pack`.
 
         Returns `(chunk, input_dropped)`: the stride-subsample loss of scans
         above max_points_per_frame in THIS chunk."""
@@ -633,6 +641,7 @@ class KissICP:
             self._pad_into(np.asarray(f), t, pts[i], ts[i], valid[i])
         return PackedChunk(packed, pts, ts, valid), self.total_input_dropped - drops_before
 
+    @trace.spanned("kiss/h2d")
     def _to_device(self, chunk: PackedChunk):
         packed = chunk.packed.to(self.device, non_blocking=True)
         return chunk_views(packed, chunk.num_frames, self._capacity)
@@ -676,7 +685,7 @@ class KissICP:
         """A chunk's (K, 4, 4) world poses on the host, f64: local poses plus
         the rolling origin, which moves only in `maybe_rebase`, so every pose
         of a chunk shares the origin it ran under."""
-        poses = self._summary_poses(summary).double().cpu().numpy()
+        poses = trace.read("poses", lambda: self._summary_poses(summary).double().cpu()).numpy()
         poses[:, :3, 3] += self.origin
         return poses
 
@@ -732,7 +741,8 @@ class KissICP:
             return False
         v = float(self.config.mapping.voxel_size)
         if world_translation is None:
-            local_t = self.state.pose[:3, 3].double().cpu().numpy()
+            local_t = trace.read("poses",
+                                 lambda: self.state.pose[:3, 3].double().cpu()).numpy()
         else:
             local_t = np.asarray(world_translation, np.float64) - self.origin
         if float(np.max(np.abs(local_t))) < trig * v:
@@ -740,7 +750,8 @@ class KissICP:
         # Voxel-aligned: u16 rows stay bit-identical, f32 rows and the pose
         # shift by an exact voxel multiple.
         shift_vox = np.floor(local_t / v).astype(np.int32)
-        dropped = self._apply_rebase(shift_vox)
+        with trace.span("kiss/rebase"):
+            dropped = self._apply_rebase(shift_vox)
         self.origin = self.origin + shift_vox.astype(np.float64) * v
         self.total_rebase_dropped += dropped
         if dropped:
@@ -756,7 +767,7 @@ class KissICP:
         """Re-base this engine's state; returns the voxels the rebuild
         dropped."""
         self.state, dropped = rebase_state(self.config, self.state, shift_vox)
-        return int(dropped)
+        return trace.read("map_dropped", int, dropped)
 
     def save_checkpoint(self, path) -> None:
         """Persist the full odometry state and the rolling origin
@@ -779,7 +790,7 @@ class KissICP:
     @property
     def last_pose(self) -> np.ndarray:
         """World pose of the last frame: local pose + rolling origin."""
-        pose = self.state.pose.double().cpu().numpy()
+        pose = trace.read("poses", lambda: self.state.pose.double().cpu()).numpy()
         pose[:3, 3] += self.origin
         return pose
 

@@ -124,6 +124,6 @@ def build_compact(mcfg: MapConfig, ccfg: CompactConfig, m: VoxelMap) -> CompactM
 
     hfp, hval, _, n_shadowed = control.while_loop(cond, body, (
         torch.zeros(h_cap + 1, **i32), torch.zeros(h_cap + 1, **i32), row_valid,
-        torch.zeros((), **i32)))
+        torch.zeros((), **i32)), "compact_claim")
     dropped = (n_live_total - n_live) + n_shadowed
     return CompactMap(ckeys, ccounts, cpoints, hfp[:h_cap], hval[:h_cap], n_live, dropped)

@@ -12,6 +12,10 @@ carry, as the JAX package writes them for `lax.while_loop` / `lax.cond`.
     per test. `torch.while_loop` and `torch.cond` called eagerly go through
     `torch.compile`, which the live path must never do.
 
+Each loop and branch has a name. Run live under a profiler (trace.py), a
+test's read is the span `kiss/sync/<name>` and a loop's trip, from the read
+that let it run up to the next read, is `kiss/<name>_trip`.
+
 The bodies follow `torch.while_loop`'s rules: they return new tensors of the
 carry's shapes and types and never alias their inputs (`fresh` copies a
 tensor that a branch would otherwise return as it came, under a trace only).
@@ -23,29 +27,35 @@ from typing import Callable, Sequence, Tuple
 
 import torch
 
+from kiss_icp_tpu_torch import trace
+
 
 def tracing() -> bool:
     """True while `torch.export` or `torch.compile` traces the caller."""
     return torch.compiler.is_compiling()
 
 
-def while_loop(cond_fn: Callable, body_fn: Callable, carry: Sequence) -> Tuple:
+def while_loop(cond_fn: Callable, body_fn: Callable, carry: Sequence, name: str) -> Tuple:
     """`carry = body_fn(*carry)` while `cond_fn(*carry)`; returns the carry."""
     carry = tuple(carry)
     if tracing():
         return tuple(torch.while_loop(cond_fn, body_fn, carry))
-    while bool(cond_fn(*carry)):
-        carry = tuple(body_fn(*carry))
+    trip = f"kiss/{name}_trip"
+    test = cond_fn(*carry)
+    while trace.read(name, bool, test):
+        with trace.span(trip):
+            carry = tuple(body_fn(*carry))
+            test = cond_fn(*carry)
     return carry
 
 
 def cond(pred: torch.Tensor, true_fn: Callable, false_fn: Callable,
-         operands: Sequence):
+         operands: Sequence, name: str):
     """`true_fn(*operands)` if `pred` else `false_fn(*operands)`."""
     operands = tuple(operands)
     if tracing():
         return torch.cond(pred, true_fn, false_fn, operands)
-    return true_fn(*operands) if bool(pred) else false_fn(*operands)
+    return true_fn(*operands) if trace.read(name, bool, pred) else false_fn(*operands)
 
 
 def fresh(t: torch.Tensor) -> torch.Tensor:

@@ -39,6 +39,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from kiss_icp_tpu_torch import trace
 from kiss_icp_tpu_torch.ops import control
 from kiss_icp_tpu_torch.ops import voxel as voxel_ops
 
@@ -404,7 +405,7 @@ def _claim_slots(fprints, vkeys, coords, fp, rows, pending, *,
     fpx, vkx, assigned, _ = control.while_loop(cond, body, (
         torch.cat([fprints, fprints.new_zeros(1)]),
         torch.cat([vkeys, vkeys.new_zeros((1, 3))]),
-        torch.full((v,), -1, dtype=torch.int64, device=dev), pending))
+        torch.full((v,), -1, dtype=torch.int64, device=dev), pending), "map_claim")
     return assigned, fpx[:cap], vkx[:cap]
 
 
@@ -489,7 +490,7 @@ def insert(cfg: MapConfig, m: VoxelMap, points: torch.Tensor,
     # roundtrip is a fixpoint, so untouched lanes keep their exact bits).
     # One index list of the rows with a slot, so that every write shares
     # its (data-dependent) length.
-    sel = torch.nonzero(has_slot).squeeze(1)
+    sel = trace.read("map_rows", torch.nonzero, has_slot).squeeze(1)
     slots = slot_safe[sel]
     stored_out = encode_points(cfg, stored[sel], coords[sel][:, None, :])
     bits = _BITS[m.points.dtype]
@@ -553,7 +554,7 @@ def rebase(cfg: MapConfig, m: VoxelMap,
 
     # Move each placed row to its claimed slot. The claimed slots are
     # unique, so the scatter is deterministic.
-    src = torch.nonzero(assigned >= 0).squeeze(1)
+    src = trace.read("map_rows", torch.nonzero, assigned >= 0).squeeze(1)
     dst = assigned[src]
     rows = _take_rows(m.points, src)
     if cfg.storage == "f32":

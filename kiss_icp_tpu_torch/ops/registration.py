@@ -23,8 +23,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
+from kiss_icp_tpu_torch import trace
 from kiss_icp_tpu_torch.ops import compact_map, control, hash_map, se3
 
 
@@ -63,8 +63,10 @@ def build_linear_system(
     return LinearSystem(jtj, jtr, torch.sum(weights_mask, dtype=torch.int32))
 
 
+@trace.spanned("kiss/solve")
 def solve_increment(ls: LinearSystem) -> torch.Tensor:
-    """dx = solve(JTJ, -JTr) by Cholesky (the reference uses LDLT).
+    """dx = solve(JTJ, -JTr) by Cholesky (the reference uses LDLT), in the
+    span `kiss/solve`.
 
     Guarded: a relative Tikhonov floor keeps near-singular systems finite in
     f32; a failed factorization (the JAX Cholesky's NaN) or any non-finite
@@ -181,7 +183,7 @@ def gauss_newton_loop(
 
     _, t_icp, it, _ = control.while_loop(cond, body, (
         src0, se3.identity(device=dev), torch.zeros((), dtype=torch.int32, device=dev),
-        torch.zeros((), dtype=torch.bool, device=dev)))
+        torch.zeros((), dtype=torch.bool, device=dev)), "gn")
     return t_icp, it
 
 
@@ -230,7 +232,8 @@ def gauss_newton_loop_cached(
 
     def body(src, t_icp, it, done, cand, cval, moved, ref_src, n_regather):
         cand, cval, ref_src, n_regather = control.cond(
-            moved > refresh_dist, regather, keep, (src, cand, cval, ref_src, n_regather))
+            moved > refresh_dist, regather, keep, (src, cand, cval, ref_src, n_regather),
+            "regather")
         diff = src[:, None, :] - cand
         sq = diff * diff
         d2 = (sq[..., 0] + sq[..., 1]) + sq[..., 2]  # (N, C)
@@ -248,7 +251,7 @@ def gauss_newton_loop_cached(
     out = control.while_loop(cond, body, (
         src0, se3.identity(device=dev), torch.zeros((), **i32),
         torch.zeros((), dtype=torch.bool, device=dev), cand0, cval0,
-        torch.zeros((), dtype=torch.float32, device=dev), src0, torch.zeros((), **i32)))
+        torch.zeros((), dtype=torch.float32, device=dev), src0, torch.zeros((), **i32)), "gn")
     return out[1], out[2], out[8]
 
 
@@ -320,7 +323,7 @@ def align_points_to_map(
             ccfg = compact_map.CompactConfig(live_capacity_log2=nn_live_capacity_log2,
                                              hash_capacity_log2=nn_live_capacity_log2 + 2,
                                              probe_length=nn_probe_length)
-            with record_function("kiss/compact_view"):
+            with trace.span("kiss/compact_view"):
                 num_dropped_compact = compact_map.build_compact(cfg, ccfg, m).num_dropped
 
         if nn_mode == "cached":
@@ -348,16 +351,17 @@ def align_points_to_map(
     # JAX runs the loop on an empty map too and selects the guess after it;
     # a branch keeps frame 0 free of kernel launches.
     return AlignResult(*control.cond(hash_map.is_empty(m), empty, register,
-                                     (initial_guess.to(torch.float32),)))
+                                     (initial_guess.to(torch.float32),), "map_empty"))
 
 
 # --- B sequences in lockstep (parallel/batch.py) ----------------------------
 
 
+@trace.spanned("kiss/solve")
 def solve_increments(ls: LinearSystem) -> torch.Tensor:
     """`solve_increment` over B systems at once: JTJ (B,6,6), JTr (B,6),
     count (B,) -> dx (B,6), with the same guards row by row (one batched
-    Cholesky factorisation and solve)."""
+    Cholesky factorisation and solve), in the span `kiss/solve`."""
     jtj = ls.jtj
     scale = torch.amax(torch.abs(torch.diagonal(jtj, dim1=-2, dim2=-1)), dim=-1)
     eps = torch.where(scale > 0, scale * 1e-7, torch.ones_like(scale))
@@ -457,7 +461,7 @@ def gauss_newton_loop_lockstep(
 
     eye = se3.identity(device=dev).expand(b, 4, 4).contiguous()
     _, t_icp, it, _ = control.while_loop(cond, body, (
-        src0, eye, torch.zeros(b, dtype=torch.int32, device=dev), ~active))
+        src0, eye, torch.zeros(b, dtype=torch.int32, device=dev), ~active), "gn")
     return t_icp, it
 
 
@@ -508,7 +512,7 @@ def align_lockstep(
         max_iterations=max_iterations, convergence=convergence, any_active_fn=any_active_fn,
         unroll=gn_unroll)
     pose = torch.where(present[:, None, None], t_icp @ guess, guess)
-    if bool(torch.any(present)):
+    if trace.read("map_empty", bool, torch.any(present)):
         q = nn27.query_nearest_batched(cfg, m, transform_rows(pose, points), valid, present)
         n_corr = torch.sum(q.found & (q.distances < max_distance[:, None]), dim=-1,
                            dtype=torch.int32)

@@ -31,7 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from kiss_icp_tpu_torch import odometry
+from kiss_icp_tpu_torch import odometry, trace
 from kiss_icp_tpu_torch.config.schema import KISSConfig
 from kiss_icp_tpu_torch.parallel.grid import DeviceMesh, GridAxis, process_axes, world
 
@@ -99,8 +99,9 @@ def batched_state_sharding(mesh: DeviceMesh) -> torch.device:
     return mesh.device
 
 
+@trace.spanned("kiss/h2d")
 def _on(device: torch.device, *arrays):
-    """numpy arrays or tensors as tensors on `device`."""
+    """numpy arrays or tensors as tensors on `device` (span `kiss/h2d`)."""
     return tuple(torch.as_tensor(a, device=device) for a in arrays)
 
 
@@ -192,25 +193,26 @@ class BatchedOdometry:
         (odometry.subsample_to_capacity: head truncation would angularly
         bias an azimuth-ordered scan)."""
         assert len(frames) == self.batch
-        pts = np.zeros((self.batch, self._cap, 3), np.float32)
-        ts = np.zeros((self.batch, self._cap), np.float32)
-        valid = np.zeros((self.batch, self._cap), bool)
-        self.last_input_dropped = 0
-        for i, f in enumerate(frames):
-            t = None if timestamps is None else timestamps[i]
-            f, t, dropped = odometry.subsample_to_capacity(f, t, self._cap)
-            self.last_input_dropped += dropped
-            n = len(f)
-            pts[i, :n] = f[:, :3]
-            valid[i, :n] = True
-            if t is not None and len(t) == n:
-                ts[i, :n] = np.asarray(t)
+        with trace.span("kiss/pack"):
+            pts = np.zeros((self.batch, self._cap, 3), np.float32)
+            ts = np.zeros((self.batch, self._cap), np.float32)
+            valid = np.zeros((self.batch, self._cap), bool)
+            self.last_input_dropped = 0
+            for i, f in enumerate(frames):
+                t = None if timestamps is None else timestamps[i]
+                f, t, dropped = odometry.subsample_to_capacity(f, t, self._cap)
+                self.last_input_dropped += dropped
+                n = len(f)
+                pts[i, :n] = f[:, :3]
+                valid[i, :n] = True
+                if t is not None and len(t) == n:
+                    ts[i, :n] = np.asarray(t)
         self.total_input_dropped += self.last_input_dropped
         self.state, self.last_result = odometry.register_frame_batched(
             self.config, self.state, *_on(self.mesh.device, pts, ts, valid), donate=True,
             **self._opts)
-        return self.last_result.pose.cpu().numpy()
+        return trace.read("poses", self.last_result.pose.cpu).numpy()
 
     @property
     def poses(self) -> np.ndarray:
-        return self.state.pose.cpu().numpy()
+        return trace.read("poses", self.state.pose.cpu).numpy()

@@ -109,10 +109,12 @@ class OdometryPipeline:
     # --- Public API ------------------------------------------------------
     def run(self) -> PipelineResults:
         if self._profile_dir is not None:
-            # Host and device timeline (torch.profiler, with the kiss/<stage>
-            # spans of odometry.register_frame) as a Chrome trace, viewable
-            # in Perfetto. The reference's only tracing is host wall-clock
-            # around register_frame (pipeline.py:100-103).
+            # Host and device timeline (torch.profiler, with the port's kiss/*
+            # spans: each frame, its stages, its loop trips and its host
+            # reads; see trace.py) as a Chrome trace, viewable in Perfetto.
+            # The spans are recorded only while this profiler runs. The
+            # reference's only tracing is host wall-clock around
+            # register_frame (pipeline.py:100-103).
             import torch
 
             acts = [torch.profiler.ProfilerActivity.CPU]

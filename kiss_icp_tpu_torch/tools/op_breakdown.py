@@ -22,8 +22,10 @@ most of a frame (`idle_share`). The parts model `preprocess +
 downsample_frame + downsample_source + mean_iters * gn_iteration + insert +
 trim` is compared with the measured frame (`frame_fused_ms`, the JAX key:
 here the wall time of a whole `register_frame` under the profiler); the
-residual is the wrapper's own work outside the spans. Times under the
-profiler are slower than without it; compare parts with parts.
+residual is the wrapper's own work outside the spans. The spans nested in
+these (`kiss/gn_trip`, `kiss/sync/*`, ...) are rows of their own in
+`parts_device_us` and add nothing to the parts. Times under the profiler
+are slower than without it; compare parts with parts.
 
 Usage:
     python -m kiss_icp_tpu_torch.tools.op_breakdown [--config soak|headline]

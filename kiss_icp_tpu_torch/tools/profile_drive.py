@@ -8,7 +8,9 @@ of `verify_drive_config`) through `KissICP.register_frame` on CUDA and
 profiles the last `--profile` frames with torch.profiler. Prints, for those
 frames: wall ms per frame (host clock; every frame ends in a device sync),
 device busy ms per frame and the device's idle share; host and device ms of
-each stage (the `kiss/<stage>` spans of odometry.register_frame); the device
+each `kiss/` span (kiss_icp_tpu_torch/trace.py: the frame, its stages, its
+loop trips and host reads), a nested span its own row, its time also inside
+its parent's; the device
 ops and the top-level host ops that take the most time, and each of the
 port's own kernels. The last line is the same as JSON. With `--trace`, the chrome trace is written there.
 """

@@ -32,7 +32,10 @@ map-sharded drive on the card launches each kernel once per GN iteration
 for all shards and matches the CPU within 1e-5 m. The port's bench
 (tools/bench.py) headline child runs at a small config on the card and on
 the CPU: the same iterations, poses within 1e-4 m, and one K1 launch a GN
-iteration.
+iteration. A chunk and a lockstep step under the sync debug mode and the
+profiler: every host sync inside a `kiss/sync/*` span (kiss_icp_tpu_torch/
+trace.py), the batch's pageable copies inside `kiss/h2d`, and every kernel
+launch inside a `kiss/` span.
 """
 
 import numpy as np
@@ -805,3 +808,95 @@ def test_bench_chunked_child_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     iters = out["cuda"]["gn_iterations"]
     assert iters > 0 and out["cuda"]["launches"] == {"k1": iters, "k2": iters + 3}
     assert out["cuda"]["dropped"] == 0 and out["cpu"]["launches"] == {"k1": 0, "k2": 0}
+
+
+def _span_stack(monkeypatch):
+    """The names of the port's spans open at each moment (the innermost
+    last), kept beside the profiler's own record of them."""
+    import contextlib
+
+    from kiss_icp_tpu_torch import trace
+
+    stack = []
+    real_span = trace.span
+
+    @contextlib.contextmanager
+    def span(name):
+        with real_span(name):
+            stack.append(name)
+            try:
+                yield
+            finally:
+                stack.pop()
+
+    def read(site, fn, *args):
+        with span(f"kiss/sync/{site}"):
+            return fn(*args)
+
+    monkeypatch.setattr(trace, "span", span)
+    monkeypatch.setattr(trace, "read", read)
+    return stack
+
+
+def test_every_sync_and_launch_on_card_inside_a_span(cuda, monkeypatch):
+    """One chunk (KissICP: build_chunk -> dispatch_chunk -> summary_poses)
+    and one 2-row lockstep step (BatchedOdometry.register_frames), after a
+    warm-up, under torch.cuda.set_sync_debug_mode("warn") and torch.profiler:
+    every sync warning is raised with a `kiss/sync/*` span innermost, one a
+    sync span, except the batch's copies of pageable host arrays, which
+    block the host themselves inside `kiss/h2d` (the chunk's pinned copy
+    does not block); every CUDA kernel launch falls inside a `kiss/` span."""
+    import warnings
+
+    from kiss_icp_tpu_torch.odometry import KissICP
+    from kiss_icp_tpu_torch.parallel.batch import BatchedOdometry
+
+    scans = _drive_scans(6)
+    icp = KissICP(_drive_config(trigger=0), device="cuda")
+    odo = BatchedOdometry(_drive_config(trigger=0), 2, device="cuda")
+
+    def chunk(part):
+        packed, dropped = icp.build_chunk([s[0] for s in part], [s[1] for s in part])
+        icp.summary_poses(icp.dispatch_chunk(packed, dropped))
+
+    def step(i):
+        odo.register_frames([scans[i][0], scans[i + 1][0]], [scans[i][1], scans[i + 1][1]])
+
+    chunk(scans[:3])
+    step(0)
+    stack = _span_stack(monkeypatch)
+    syncs = []
+    phase = "start"
+
+    def hook(message, *args, **kwargs):
+        if "called a synchronizing CUDA operation" in str(message):
+            syncs.append((phase, stack[-1] if stack else None))
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = hook
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                phase = "chunk"
+                chunk(scans[3:6])
+                phase = "batch"
+                step(2)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+
+    host = [e for e in prof.events() if e.device_type != torch.autograd.DeviceType.CUDA]
+    spans = [e for e in host if e.name.startswith("kiss/")]
+    sync_spans = [e for e in spans if e.name.startswith("kiss/sync/")]
+    in_sync = [s for s in syncs if s[1] is not None and s[1].startswith("kiss/sync/")]
+    rest = [s for s in syncs if s not in in_sync]
+    assert len(in_sync) == len(sync_spans) > 0, (len(sync_spans), syncs)
+    assert all(s == ("batch", "kiss/h2d") for s in rest), rest
+    launches = [e for e in host if "LaunchKernel" in e.name]
+    outside = [e.name for e in launches
+               if not any(s.time_range.start <= e.time_range.start
+                          and e.time_range.end <= s.time_range.end for s in spans)]
+    assert launches and not outside, (len(launches), outside[:10])

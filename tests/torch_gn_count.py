@@ -52,9 +52,9 @@ def counting(syncs: Optional[Callable[[], int]] = None):
     def now() -> int:
         return rec.syncs() if rec.syncs is not None else 0
 
-    def while_loop(cond_fn, body_fn, carry):
+    def while_loop(cond_fn, body_fn, carry, name):
         if getattr(body_fn, "__qualname__", "") not in GN_BODIES:
-            return real_loop(cond_fn, body_fn, carry)
+            return real_loop(cond_fn, body_fn, carry, name)
         loop = {"trips": 0, "evals": 0, "cond_syncs": 0, "body_syncs": 0}
         rec.loops.append(loop)
 
@@ -68,7 +68,7 @@ def counting(syncs: Optional[Callable[[], int]] = None):
         rec._current = loop
         s0 = now()
         try:
-            return real_loop(cond_fn, body, carry)
+            return real_loop(cond_fn, body, carry, name)
         finally:
             rec._current = None
             # What the loop took outside its body: the tests and their reads.
