@@ -26,7 +26,7 @@ from typing import Tuple
 import torch
 
 from kiss_icp_tpu_torch.kernels import _build
-from kiss_icp_tpu_torch.ops import registration
+from kiss_icp_tpu_torch.ops import control, registration
 from kiss_icp_tpu_torch.ops.registration import LinearSystem
 
 
@@ -108,6 +108,8 @@ def build_linear_system(
 
 
 build_linear_system.launches = 0
+# A CUDA graph's replay counts the launches its capture recorded (ops/control.py).
+control.count_launches(build_linear_system)
 
 
 @torch.library.custom_op("kiss_icp_torch::linsys_batched", mutates_args=(),

@@ -3,7 +3,9 @@
 Port of `kiss_icp_tpu/ops/registration.py` (reference Registration.cpp:
 52-167). The ICP loop is a `control.while_loop` over its carry, as JAX's
 `lax.while_loop`: run live, one scalar read per loop trip (the convergence
-test), a trip being `engine.gn_unroll` iterations; under `torch.export`, a
+test), a trip being `engine.gn_unroll` iterations, and on the card each
+trip after a loop's first on a map is the replay of one CUDA graph of the
+trip's ~200 kernels (ops/control.py); under `torch.export`, a
 `torch.while_loop`. Each iteration runs an NN query (the fused NN kernel,
 kernels/nn27.py, in most modes; see `align_points_to_map`) and the
 normal-equation kernel (kernels/linsys.py) on CUDA tensors, or their plain
@@ -20,7 +22,7 @@ Geman-McClure weight, exactly as the reference (Registration.cpp:95-98):
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, Hashable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -120,14 +122,18 @@ def gauss_newton_loop(
     convergence: float,
     any_active_fn: Optional[Callable] = None,
     unroll: int = 1,
+    operands: Sequence[torch.Tensor] = (),
+    tables: Sequence[torch.Tensor] = (),
+    graph_key: Optional[Hashable] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The ICP loop (reference Registration.cpp:151-164; JAX
     `registration.gauss_newton_loop`).
 
-    query_fn(src) -> (distances (..., N), neighbors (..., N, 3));
-    linsys_fn(src, neighbors, mask, kernel_scale, center) -> LinearSystem.
-    The map-sharded programs (parallel/) return one answer per local shard
-    row, hence the leading axes; their linsys_fn reduces over the rows.
+    query_fn(src, *operands, *tables) -> (distances (..., N), neighbors
+    (..., N, 3)); linsys_fn(src, neighbors, mask, kernel_scale, center,
+    *operands, *tables) -> LinearSystem. The map-sharded programs
+    (parallel/) return one answer per local shard row, hence the leading
+    axes; their linsys_fn reduces over the rows.
     Runs until the world-frame increment norm is below `convergence` (the
     iteration that converges still applies its step and is counted) or
     `max_iterations`. Returns (t_icp (4, 4), iterations () int32) with final
@@ -148,6 +154,15 @@ def gauss_newton_loop(
     the same number of trips; a process whose own loop is done keeps its
     carry while the others run (the JAX body's freeze), the same `unroll`
     iterations a trip.
+
+    `operands` and `tables`: every tensor query_fn and linsys_fn read
+    besides their arguments; they read none from a closure. `graph_key`
+    (hashable): what the two compute besides those tensors (the map's
+    configuration, the query mode). With one, no `any_active_fn` and CUDA
+    tensors, each loop trip is the replay of one CUDA graph
+    (ops/control.py), which reads copies of the loop's inputs and
+    `operands`, made once a call, and `tables` where they lie; poses,
+    iterations and launch counts are the Python loop's.
     """
     guess = initial_guess.to(torch.float32)
     src0 = se3.transform(guess, points)
@@ -162,10 +177,11 @@ def gauss_newton_loop(
         run = running(it, done)
         return run if any_active_fn is None else any_active_fn(run)
 
-    def iteration(freeze, src, t_icp, it, done):
-        dist, neighbors = query_fn(src)
+    def iteration(freeze, src, t_icp, it, done, valid, center, max_distance, kernel_scale,
+                  extra):
+        dist, neighbors = query_fn(src, *extra)
         corr = torch.isfinite(dist) & valid & (dist < max_distance)
-        dx = solve_increment(linsys_fn(src, neighbors, corr, kernel_scale, center))
+        dx = solve_increment(linsys_fn(src, neighbors, corr, kernel_scale, center, *extra))
         new_src, new_t, step = _apply_increment(dx, center, src, t_icp)
         if not freeze:
             return new_src, new_t, it + 1, step < convergence
@@ -173,18 +189,31 @@ def gauss_newton_loop(
         return (torch.where(run, new_src, src), torch.where(run, new_t, t_icp),
                 it + run.to(torch.int32), done | (run & (step < convergence)))
 
-    def body(*carry):
+    def body(src, t_icp, it, done, valid, center, max_distance, kernel_scale, *extra):
+        frame = (valid, center, max_distance, kernel_scale, extra)
         # A trip's first iteration runs the solve: the test just read it
         # running (on one process; across processes, it may be another's).
-        carry = iteration(any_active_fn is not None, *carry)
+        carry = iteration(any_active_fn is not None, src, t_icp, it, done, *frame)
         for _ in range(unroll - 1):
-            carry = iteration(True, *carry)
+            carry = iteration(True, *carry, *frame)
         return carry
 
+    key = None
+    if graph_key is not None and any_active_fn is None:
+        key = ("single", graph_key, max_iterations, convergence, unroll, _code(query_fn),
+               _code(linsys_fn))
     _, t_icp, it, _ = control.while_loop(cond, body, (
         src0, se3.identity(device=dev), torch.zeros((), dtype=torch.int32, device=dev),
-        torch.zeros((), dtype=torch.bool, device=dev)), "gn")
+        torch.zeros((), dtype=torch.bool, device=dev)), "gn",
+        inputs=(valid, center, max_distance, kernel_scale, *operands), tables=tables,
+        graph_key=key)
     return t_icp, it
+
+
+def _code(fn: Callable):
+    """What identifies a function's computation in a graph's key: its code
+    (a closure's constants are the caller's `graph_key`)."""
+    return getattr(fn, "__code__", fn)
 
 
 def gauss_newton_loop_cached(
@@ -293,24 +322,31 @@ def align_points_to_map(
         `assoc_cache_size` candidates, re-gathered past `assoc_refresh_dist`.
 
     `gn_unroll` goes to `gauss_newton_loop` (every mode but "cached", whose
-    loop JAX does not unroll either). The final correspondence count goes
-    through the mode's own query.
+    loop JAX does not unroll either), and so does the map: its tables as
+    the loop's operands (`vkeys`, `fprints`, which `insert` replaces every
+    frame) and tables (`counts`, `points`, written in place), so that on
+    the card each loop trip replays one CUDA graph. The final
+    correspondence count goes through the mode's own query.
     """
     # The kernels' wrappers import this module for the plain versions.
     from kiss_icp_tpu_torch.kernels import linsys, nn27
 
-    def sparse(src):
-        return nn27.query_nearest(cfg, m, src, valid)
+    def map_of(vkeys, fprints, counts, points):
+        return m._replace(vkeys=vkeys, fprints=fprints, counts=counts, points=points)
+
+    def sparse(src, valid, *maps):
+        return nn27.query_nearest(cfg, map_of(*maps), src, valid)
 
     if nn_mode in ("gather27", "pallas_fused", "cached", "compact", "compact_loop"):
         nn = sparse
     elif nn_mode == "loop27":
-        def nn(src):
+        def nn(src, valid, *maps):
             if src.device.type == "cpu":
-                return hash_map.query_nearest_loop(cfg, m, src, valid)
-            return sparse(src)
+                return hash_map.query_nearest_loop(cfg, map_of(*maps), src, valid)
+            return sparse(src, valid, *maps)
     else:
         raise ValueError(f"unknown nn_mode: {nn_mode!r}")
+    operands, tables = (valid, m.vkeys, m.fprints), (m.counts, m.points)
 
     def empty(guess):
         # Nothing to register against: the guess, 0 iterations, no launch.
@@ -333,18 +369,22 @@ def align_points_to_map(
                 refresh_dist=float(assoc_refresh_dist), max_iterations=max_iterations,
                 convergence=convergence, linsys_fn=linsys.build_linear_system)
         else:
-            def query_fn(src):
-                q = nn(src)
+            def query_fn(src, *maps):
+                q = nn(src, *maps)
                 return q.distances, q.neighbors
+
+            def linsys_fn(src, neighbors, mask, kernel_scale, center, *maps):
+                return linsys.build_linear_system(src, neighbors, mask, kernel_scale, center)
 
             t_icp, iters = gauss_newton_loop(
                 points, valid, guess, max_distance, kernel_scale,
-                query_fn=query_fn, linsys_fn=linsys.build_linear_system,
-                max_iterations=max_iterations, convergence=convergence, unroll=gn_unroll)
+                query_fn=query_fn, linsys_fn=linsys_fn,
+                max_iterations=max_iterations, convergence=convergence, unroll=gn_unroll,
+                operands=operands, tables=tables, graph_key=(cfg, nn_mode))
 
         pose = t_icp @ guess
         # Final correspondence count for diagnostics (one extra association).
-        q = nn(se3.transform(pose, points))
+        q = nn(se3.transform(pose, points), *operands, *tables)
         n_corr = torch.sum(q.found & (q.distances < max_distance), dtype=torch.int32)
         return pose, iters, n_corr, num_dropped_compact
 
@@ -361,13 +401,17 @@ def align_points_to_map(
 def solve_increments(ls: LinearSystem) -> torch.Tensor:
     """`solve_increment` over B systems at once: JTJ (B,6,6), JTr (B,6),
     count (B,) -> dx (B,6), with the same guards row by row (one batched
-    Cholesky factorisation and solve), in the span `kiss/solve`."""
+    Cholesky factorisation and solve), in the span `kiss/solve`.
+
+    On the card PyTorch solves a batch with MAGMA, which allocates device
+    memory at each call, so a CUDA graph cannot hold the solve: it runs
+    between the graph's parts (`control.outside_graph`)."""
     jtj = ls.jtj
     scale = torch.amax(torch.abs(torch.diagonal(jtj, dim1=-2, dim2=-1)), dim=-1)
     eps = torch.where(scale > 0, scale * 1e-7, torch.ones_like(scale))
     jtj = jtj + eps[:, None, None] * torch.eye(6, dtype=jtj.dtype, device=jtj.device)
     chol, info = torch.linalg.cholesky_ex(jtj)
-    dx = torch.cholesky_solve(-ls.jtr[..., None], chol)[..., 0]
+    dx = control.outside_graph(torch.cholesky_solve, -ls.jtr[..., None], chol)[..., 0]
     zero = torch.zeros_like(dx)
     ok = (info == 0) & torch.all(torch.isfinite(dx), dim=-1)
     dx = torch.where(ok[:, None], dx, zero)
@@ -410,25 +454,30 @@ def gauss_newton_loop_lockstep(
     convergence: float,
     any_active_fn: Optional[Callable] = None,
     unroll: int = 1,
+    operands: Sequence[torch.Tensor] = (),
+    tables: Sequence[torch.Tensor] = (),
+    graph_key: Optional[Hashable] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`gauss_newton_loop` for B rows in lockstep (JAX: the loop under
     `jax.vmap`): points (B,N,3), valid (B,N), initial_guess (B,4,4),
     max_distance and kernel_scale (B,), active (B,) bool (a row that starts
     inactive does no iteration).
 
-    query_fn(src, active) -> (distances (B,N), neighbors (B,N,3));
-    linsys_fn(src, neighbors, mask, kernel_scale, center, active) ->
-    LinearSystem of B rows. Each iteration makes one call of each for all
-    rows, solves the B systems in one batched factorisation and moves every
-    row still running; a row that has converged or run `max_iterations`
-    keeps its carry, as `vmap`'s frozen rows do, so its result is its own
-    `gauss_newton_loop`. The loop ends once no row runs: one host read per
-    trip of `unroll` iterations (as in `gauss_newton_loop`), whatever B.
-    Each iteration passes its own running rows to query_fn and linsys_fn,
-    so a row frozen within a trip costs the kernels no work. Returns
-    (t_icp (B,4,4), iterations (B,) int32). `any_active_fn` as in
-    `gauss_newton_loop`: the loop then runs while a row runs in any process
-    that shares its collectives.
+    query_fn(src, active, *operands, *tables) -> (distances (B,N), neighbors
+    (B,N,3)); linsys_fn(src, neighbors, mask, kernel_scale, center, active,
+    *operands, *tables) -> LinearSystem of B rows. Each iteration makes one
+    call of each for all rows, solves the B systems in one batched
+    factorisation and moves every row still running; a row that has
+    converged or run `max_iterations` keeps its carry, as `vmap`'s frozen
+    rows do, so its result is its own `gauss_newton_loop`. The loop ends
+    once no row runs: one host read per trip of `unroll` iterations (as in
+    `gauss_newton_loop`), whatever B. Each iteration passes its own running
+    rows to query_fn and linsys_fn, so a row frozen within a trip costs the
+    kernels no work. Returns (t_icp (B,4,4), iterations (B,) int32).
+    `any_active_fn` as in `gauss_newton_loop`: the loop then runs while a
+    row runs in any process that shares its collectives. `operands`,
+    `tables` and `graph_key` as in `gauss_newton_loop`: on the card each
+    trip replays one CUDA graph.
     """
     guess = initial_guess.to(torch.float32)
     src0 = transform_rows(guess, points)
@@ -443,25 +492,33 @@ def gauss_newton_loop_lockstep(
         run = torch.any(running(it, done))
         return run if any_active_fn is None else any_active_fn(run)
 
-    def iteration(src, t_icp, it, done):
+    def iteration(src, t_icp, it, done, valid, center, max_distance, kernel_scale, extra):
         run = running(it, done)
-        dist, neighbors = query_fn(src, run)
+        dist, neighbors = query_fn(src, run, *extra)
         corr = torch.isfinite(dist) & valid & (dist < max_distance[:, None])
-        dx = solve_increments(linsys_fn(src, neighbors, corr, kernel_scale, center, run))
+        dx = solve_increments(linsys_fn(src, neighbors, corr, kernel_scale, center, run,
+                                        *extra))
         new_src, new_t, step = _apply_increments(dx, center, src, t_icp)
         return (torch.where(run[:, None, None], new_src, src),
                 torch.where(run[:, None, None], new_t, t_icp),
                 it + run.to(torch.int32),
                 done | (run & (step < convergence)))
 
-    def body(*carry):
+    def body(src, t_icp, it, done, valid, center, max_distance, kernel_scale, *extra):
+        carry = (src, t_icp, it, done)
         for _ in range(unroll):
-            carry = iteration(*carry)
+            carry = iteration(*carry, valid, center, max_distance, kernel_scale, extra)
         return carry
 
+    key = None
+    if graph_key is not None and any_active_fn is None:
+        key = ("lockstep", graph_key, max_iterations, convergence, unroll, _code(query_fn),
+               _code(linsys_fn))
     eye = se3.identity(device=dev).expand(b, 4, 4).contiguous()
     _, t_icp, it, _ = control.while_loop(cond, body, (
-        src0, eye, torch.zeros(b, dtype=torch.int32, device=dev), ~active), "gn")
+        src0, eye, torch.zeros(b, dtype=torch.int32, device=dev), ~active), "gn",
+        inputs=(valid, center, max_distance, kernel_scale, *operands), tables=tables,
+        graph_key=key)
     return t_icp, it
 
 
@@ -496,21 +553,29 @@ def align_lockstep(
     every map is empty. `linsys_fn` (default: the batched K1,
     kernels/linsys.build_linear_systems), `any_active_fn` and `gn_unroll`
     (its `unroll`) as in `gauss_newton_loop_lockstep`: the "pts" axis of
-    parallel/batch.py passes its block sums."""
+    parallel/batch.py passes its block sums. With the default `linsys_fn`
+    and no `any_active_fn`, each loop trip on the card replays one CUDA
+    graph, which reads the stacked maps as `align_points_to_map`'s does."""
     from kiss_icp_tpu_torch.kernels import linsys, nn27
 
     guess = initial_guess.to(torch.float32)
     present = ~hash_map.is_empty(m)
+    rows_fn = linsys_fn or linsys.build_linear_systems
 
-    def query_fn(src, run):
-        q = nn27.query_nearest_batched(cfg, m, src, valid, run)
+    def query_fn(src, run, valid, vkeys, fprints, counts, points):
+        maps = m._replace(vkeys=vkeys, fprints=fprints, counts=counts, points=points)
+        q = nn27.query_nearest_batched(cfg, maps, src, valid, run)
         return q.distances, q.neighbors
+
+    def rows_linsys_fn(src, neighbors, mask, kernel_scale, center, run, *maps):
+        return rows_fn(src, neighbors, mask, kernel_scale, center, run)
 
     t_icp, iters = gauss_newton_loop_lockstep(
         points, valid, guess, max_distance, kernel_scale, present,
-        query_fn=query_fn, linsys_fn=linsys_fn or linsys.build_linear_systems,
+        query_fn=query_fn, linsys_fn=rows_linsys_fn,
         max_iterations=max_iterations, convergence=convergence, any_active_fn=any_active_fn,
-        unroll=gn_unroll)
+        unroll=gn_unroll, operands=(valid, m.vkeys, m.fprints), tables=(m.counts, m.points),
+        graph_key=(cfg,) if linsys_fn is None else None)
     pose = torch.where(present[:, None, None], t_icp @ guess, guess)
     if trace.read("map_empty", bool, torch.any(present)):
         q = nn27.query_nearest_batched(cfg, m, transform_rows(pose, points), valid, present)

@@ -77,7 +77,8 @@ def make_sharded_align(
     AlignResult` with the point axis split over `mesh`'s `axis` (JAX
     `make_sharded_align`). N must divide by the axis extent P. Every rank
     passes the whole (N, 3) source and the whole map; each works on its
-    blocks. The final correspondence count is summed over the blocks."""
+    blocks. The final correspondence count is summed over the blocks. On
+    one process, each GN loop trip on the card replays one CUDA graph."""
     from kiss_icp_tpu_torch.kernels import nn27
 
     ax = mesh.axis(axis)
@@ -89,11 +90,12 @@ def make_sharded_align(
         guess = guess.to(torch.float32)
         one = torch.ones(1, dtype=torch.bool, device=pts.device)
 
-        def query_fn(src):
-            q = nn27.query_nearest(cfg, m, src, vld)
+        def query_fn(src, vld, one, vkeys, fprints, counts, points):
+            tables = m._replace(vkeys=vkeys, fprints=fprints, counts=counts, points=points)
+            q = nn27.query_nearest(cfg, tables, src, vld)
             return q.distances, q.neighbors
 
-        def linsys_fn(src, neighbors, corr, ks, center):
+        def linsys_fn(src, neighbors, corr, ks, center, vld, one, *maps):
             ls = block_systems(ax, src[None], neighbors[None], corr[None], ks[None],
                                center[None], one)
             return registration.LinearSystem(ls.jtj[0], ls.jtr[0], ls.num_correspondences[0])
@@ -105,7 +107,9 @@ def make_sharded_align(
         t_icp, iters = registration.gauss_newton_loop(
             pts, vld, guess, max_distance, kernel_scale, query_fn=query_fn,
             linsys_fn=linsys_fn, max_iterations=max_iterations, convergence=convergence,
-            any_active_fn=ax.any if ax.ranks > 1 else None)
+            any_active_fn=ax.any if ax.ranks > 1 else None,
+            operands=(vld, one, m.vkeys, m.fprints), tables=(m.counts, m.points),
+            graph_key=(cfg, ax.extent, ax.ranks, ax.index))
         pose = t_icp @ guess
         q = nn27.query_nearest(cfg, m, se3.transform(pose, pts), vld)
         n_corr = ax.total(torch.sum(q.found & (q.distances < max_distance),

@@ -207,8 +207,9 @@ def frame_step_shard(
     one batched K1 launch with the L stripes as rows, the sums over D in
     shard order; and per trip of `engine.gn_unroll` iterations the loop's
     one host read (all-reduced over the axis's ranks, so every rank runs
-    the same trip count). An empty map on every shard skips the loop and
-    the final count: no launch.
+    the same trip count; on one process, each trip on the card is the
+    replay of one CUDA graph). An empty map on every shard skips the loop
+    and the final count: no launch.
     """
     vsize = float(config.mapping.voxel_size)
     n_shards, n_local = axis.extent, axis.local
@@ -234,15 +235,23 @@ def frame_step_shard(
     q_valid = source.valid.expand(n_local, n_src).contiguous()
     global_empty = bool(axis.total(state.total_points) == 0)
 
-    def query_fn(src):
-        q = nn27.query_nearest_batched(mcfg_local, m_rows,
+    # What the loop's query and normal equations read besides their
+    # arguments, passed to them by the loop (on the card, a CUDA graph's
+    # copies of the operands; the tables where they lie).
+    operands = (q_valid, stripe, active, rows, m_rows.vkeys, m_rows.fprints)
+    tables = (m_rows.counts, m_rows.points)
+
+    def query_fn(src, q_valid, stripe, active, rows, vkeys, fprints, counts, points):
+        shards = m_rows._replace(vkeys=vkeys, fprints=fprints, counts=counts, points=points)
+        q = nn27.query_nearest_batched(mcfg_local, shards,
                                        src.expand(n_local, n_src, 3).contiguous(),
                                        q_valid, active)
         d2, nn = ring_min_combine(axis.gather(torch.square(q.distances)),
                                   axis.gather(q.neighbors), rows)
         return torch.sqrt(d2), nn
 
-    def linsys_fn(src, neighbors, corr, kernel_scale, center):
+    def linsys_fn(src, neighbors, corr, kernel_scale, center, q_valid, stripe, active,
+                  *maps):
         ls = linsys.build_linear_systems(
             src.expand(n_local, n_src, 3).contiguous(), neighbors, corr & stripe,
             kernel_scale.expand(n_local).contiguous(),
@@ -262,7 +271,8 @@ def frame_step_shard(
             max_iterations=int(config.registration.max_num_iterations),
             convergence=float(config.registration.convergence_criterion),
             any_active_fn=axis.any if axis.ranks > 1 else None,
-            unroll=int(config.engine.gn_unroll))
+            unroll=int(config.engine.gn_unroll), operands=operands, tables=tables,
+            graph_key=(mcfg_local, axis.extent, axis.ranks, axis.index))
         aligned = t_icp @ guess
         pose_finite = torch.all(torch.isfinite(aligned))
         new_pose = torch.where(pose_finite, aligned, guess)
@@ -274,7 +284,7 @@ def frame_step_shard(
     if global_empty:
         n_corr = torch.zeros((), **i32)
     else:
-        dist_f, _ = query_fn(se3.transform(new_pose, source.points))
+        dist_f, _ = query_fn(se3.transform(new_pose, source.points), *operands, *tables)
         corr_f = torch.isfinite(dist_f) & source.valid & (dist_f < max_distance)
         n_corr = axis.total(torch.sum(corr_f & stripe, dim=-1, dtype=torch.int32))
 

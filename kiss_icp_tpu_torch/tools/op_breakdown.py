@@ -22,7 +22,11 @@ most of a frame (`idle_share`). The parts model `preprocess +
 downsample_frame + downsample_source + mean_iters * gn_iteration + insert +
 trim` is compared with the measured frame (`frame_fused_ms`, the JAX key:
 here the wall time of a whole `register_frame` under the profiler); the
-residual is the wrapper's own work outside the spans. The spans nested in
+residual is the wrapper's own work outside the spans. On the card a GN
+loop trip after the first on a map replays a CUDA graph (ops/control.py),
+which calls no operator on the host: `operator_calls_per_frame` counts the
+host's calls (the final count's K2, a captured trip's), and `kernels` the
+launches the card ran. The spans nested in
 these (`kiss/gn_trip`, `kiss/sync/*`, ...) are rows of their own in
 `parts_device_us` and add nothing to the parts. Times under the profiler
 are slower than without it; compare parts with parts.

@@ -18,7 +18,10 @@ benchmark's readers take them from the trace):
     wrapper's (`kiss/pack`: padding scans into a host buffer; `kiss/h2d`:
     moving it to the device);
   * `kiss/<loop>_trip`: one trip of an `ops/control.py` loop, from the read
-    that let it run up to the next read;
+    that let it run up to the next read; inside it, where the trip runs on
+    a CUDA graph, `kiss/<loop>_capture` (the trip that captures it) or
+    `kiss/<loop>_replay` (each later trip): a replayed trip enters none of
+    the body's spans (`kiss/solve`);
   * `kiss/sync/<site>`: a host read of a device value (`read`), in which
     the host waits for the device.
 """

@@ -35,7 +35,12 @@ the CPU: the same iterations, poses within 1e-4 m, and one K1 launch a GN
 iteration. A chunk and a lockstep step under the sync debug mode and the
 profiler: every host sync inside a `kiss/sync/*` span (kiss_icp_tpu_torch/
 trace.py), the batch's pageable copies inside `kiss/h2d`, and every kernel
-launch inside a `kiss/` span.
+launch inside a `kiss/` span. The Gauss-Newton loop on CUDA graphs
+(ops/control.py: a trip after the first on a set of map tables is a graph
+replay) against the Python loop on the same card, bit for bit with the same
+K1/K2 launches: the single loop at gn_unroll 1 and 2 (a fresh state and a
+re-base each capture anew), four lockstep rows whose solves end at
+different trips, and the map-shard loop at map_shards 2.
 """
 
 import numpy as np
@@ -900,3 +905,146 @@ def test_every_sync_and_launch_on_card_inside_a_span(cuda, monkeypatch):
                if not any(s.time_range.start <= e.time_range.start
                           and e.time_range.end <= s.time_range.end for s in spans)]
     assert launches and not outside, (len(launches), outside[:10])
+
+
+# --- The Gauss-Newton loop on CUDA graphs (ops/control.py) -------------------
+
+
+def _graph_drive(monkeypatch, run, graphs):
+    """`run()` (a drive: returns its poses and iterations) with each GN loop
+    trip on a CUDA graph (`graphs`) or on the Python loop, counting K1/K2
+    launches, GN loop trips and iterations run (tests/torch_gn_count.py),
+    captures and replays."""
+    import torch_gn_count
+
+    from kiss_icp_tpu_torch.ops import control
+
+    control.clear_graphs()
+    events = {"capture": 0, "replay": 0}
+    real_capture, real_replay = control.TripGraph.capture, control.TripGraph.replay
+
+    def capture(self, *args):
+        events["capture"] += 1
+        return real_capture(self, *args)
+
+    def replay(self):
+        events["replay"] += 1
+        return real_replay(self)
+
+    with monkeypatch.context() as mp:
+        mp.setattr(control.TripGraph, "capture", capture)
+        mp.setattr(control.TripGraph, "replay", replay)
+        if not graphs:
+            mp.setattr(control, "uses_graph", lambda carry, key: False)
+        k1, k2 = linsys.build_linear_system.launches, nn27.query_nearest.launches
+        with torch_gn_count.counting() as rec:
+            out = run()
+        torch.cuda.synchronize()
+        launches = (linsys.build_linear_system.launches - k1,
+                    nn27.query_nearest.launches - k2)
+    control.clear_graphs()
+    return out, launches, (rec.total("trips"), rec.total("evals")), events
+
+
+def _assert_graph_drive(monkeypatch, run, new_tables=1):
+    """The drive on graphs gives the Python loop's poses and iterations bit
+    for bit and its K1/K2 launches; it captures once for each set of map
+    tables (`new_tables`) and replays every other trip."""
+    (poses, iters), launches, (trips, evals), ev = _graph_drive(monkeypatch, run, True)
+    (ref_poses, ref_iters), ref_launches, ref_counts, ref_ev = _graph_drive(
+        monkeypatch, run, False)
+    for a, b in zip(poses, ref_poses):
+        assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+    assert iters == ref_iters and launches == ref_launches and (trips, evals) == ref_counts
+    assert ref_ev == {"capture": 0, "replay": 0}
+    assert ev == {"capture": new_tables, "replay": trips - new_tables}
+    assert trips > 2 * new_tables
+    return iters, launches
+
+
+@pytest.mark.parametrize("unroll", [1, 2])
+def test_single_loop_on_graphs_bit_identical_to_python_loop(cuda, monkeypatch, unroll):
+    """13 frames through KissICP, a fresh state for 3 more while the first
+    is kept (its tables lie elsewhere: a new capture), then a re-base of
+    the second (new tables: a new capture) and 3 frames after it."""
+    from kiss_icp_tpu_torch.odometry import KissICP
+
+    scans = _drive_scans(16)
+    cfg = _drive_config(trigger=0)
+    cfg.engine.gn_unroll = unroll
+
+    def run():
+        first, second = KissICP(cfg, device="cuda"), KissICP(cfg, device="cuda")
+        poses, iters = [], []
+        for icp, part in ((first, scans[:13]), (second, scans[:3])):
+            for f, t in part:
+                icp.register_frame(f, t)
+                poses.append(icp.last_pose)
+                iters.append(int(icp.last_result.num_iterations))
+        second._apply_rebase(np.array([2, -1, 0], np.int32))
+        for f, t in scans[3:6]:
+            second.register_frame(f, t)
+            poses.append(second.last_pose)
+            iters.append(int(second.last_result.num_iterations))
+        return poses, iters
+
+    iters, (k1, k2) = _assert_graph_drive(monkeypatch, run, new_tables=3)
+    if unroll == 1:
+        # Two frames on an empty map: no loop, no launch.
+        assert (k1, k2) == (sum(iters), sum(iters) + len(iters) - 2)
+
+
+def test_lockstep_loop_on_graphs_bit_identical_to_python_loop(cuda, monkeypatch):
+    """Four rows at distinct velocities (their solves end at different
+    trips) through the batched step for 12 frames."""
+    from kiss_icp_tpu_torch.parallel import batch as pbatch
+
+    cfg = KISSConfig()
+    cfg.data.max_range = 50.0
+    cfg.data.min_range = 1.0
+    cfg.mapping.voxel_size = 0.5
+    cfg.engine.max_points_per_frame = 4096
+    cfg.engine.frame_capacity = 4096
+    cfg.engine.source_capacity = 1024
+    cfg.engine.map_capacity_log2 = 15
+    b, k = 4, 12
+    rng = np.random.default_rng(2)
+    base = rng.uniform(-30, 30, (b, 4096, 3)).astype(np.float32)
+    vel = np.arange(1, b + 1)[:, None, None].astype(np.float32) * np.float32([0.15, 0.02, 0.0])
+    pts = np.stack([base + vel * i for i in range(k)])
+    ts, valid = np.zeros((k, b, 4096), np.float32), np.ones((k, b, 4096), bool)
+
+    def run():
+        step = pbatch.make_batched_step(cfg, pbatch.make_mesh(device="cuda"))
+        state = pbatch.init_batched_state(cfg, b, "cuda")
+        poses, iters = [], []
+        for i in range(k):
+            state, res = step(state, pts[i], ts[i], valid[i])
+            poses.append(res.pose.clone())
+            iters.append(res.num_iterations.cpu().tolist())
+        return poses, iters
+
+    iters, (k1, k2) = _assert_graph_drive(monkeypatch, run)
+    assert any(len(set(row)) > 1 for row in iters[1:])  # rows part within a frame
+    lockstep = sum(max(row) for row in iters)
+    assert (k1, k2) == (lockstep, lockstep + k - 1)
+
+
+def test_map_shard_loop_on_graphs_bit_identical_to_python_loop(cuda, monkeypatch):
+    """map_shards = 2 on one process for 12 frames: each trip of the
+    sharded step's loop replays a graph."""
+    from kiss_icp_tpu_torch import odometry
+
+    scans = _sharded_scans(k=12)
+
+    def run():
+        icp = odometry.create_odometry(_sharded_config(2), device="cuda")
+        poses, iters = [], []
+        for f in scans:
+            icp.register_frame(f)
+            poses.append(icp.last_pose)
+            iters.append(int(icp.last_result.num_iterations))
+        return poses, iters
+
+    iters, (k1, k2) = _assert_graph_drive(monkeypatch, run)
+    assert (k1, k2) == (sum(iters), sum(iters) + len(iters) - 1)
