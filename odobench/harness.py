@@ -1,14 +1,28 @@
 """One run of one cell: set-up, the measured window, the check, the result.
 
-Everything a cell is made of is found by name: the cell in
-`BENCHMARK.json`, its configuration file (the entry's `file`), its traffic
-file `odobench/traffic/<traffic>.json` and the driver module that file
-names, `odobench/traffic/<driver>.py`, the limits of its check
-`odobench/limits/<cell>.json`, a reader per end-to-end metric,
-`odobench/end_to_end/<name>.py`, and a reader per per-layer metric,
-`odobench/layer_metrics/<name>.py`, or for `<base>.<variant>` `<base>.py`,
-or for `<kernel>_roofline` `roofline.py`. A cell, a configuration, a
-traffic mix or a metric is added by adding files and entries.
+Everything a cell is made of is a file found by name:
+  * the cell: an entry of `BENCHMARK.json`'s `workloads`, naming its
+    configuration and its traffic mix;
+  * the configuration: the file its entry in `configs` names (a sensor, a
+    drive and a KISS-ICP `kiss` section);
+  * the scan model: `odobench/sensors/<stem>.py` where the configuration
+    says `"scans": "<stem>"`, whose `render_drives(config, traffic, seed,
+    device)` gives each drive as host (points, stamps) arrays; without the
+    key, `render_drives` below (`odobench/scans.py`);
+  * the reference: `odobench/reference/<stem>.py` where the configuration
+    says `"reference": "<stem>"`, `kiss.py` without the key; it exports
+    `Params.from_config(kiss)`, `follow`, `pose_gap` and `MODELS`, the
+    `kiss` keys and values it models, and a configuration that states any
+    other is refused before anything is rendered (`unmodelled`);
+  * the traffic mix: `odobench/traffic/<traffic>.json`, and the driver
+    module it names, `odobench/traffic/<driver>.py`;
+  * the limits of its check: `odobench/limits/<cell>.json`;
+  * a metric: `odobench/end_to_end/<name>.py` for an end-to-end metric; for
+    a per-layer metric `odobench/layer_metrics/<name>.py`, or for
+    `<base>.<variant>` `<base>.py`, or for `<kernel>_roofline`
+    `roofline.py`.
+A cell, a configuration, a scan model, a reference, a traffic mix or a
+metric is added by adding files and entries.
 
 `run_cell` does the work; `odobench/run.py` is the command line, which
 refuses to run without a card.
@@ -73,6 +87,7 @@ class Layout:
             return None
         spec = importlib.util.spec_from_file_location(f"odobench_{folder}_{stem}", path)
         mod = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = mod  # where a dataclass looks its module up
         spec.loader.exec_module(mod)
         return mod
 
@@ -81,6 +96,25 @@ class Layout:
         mod = self._module("traffic", name)
         if mod is None:
             raise KeyError(f"no traffic driver {name!r}")
+        return mod
+
+    def scans(self, config: dict) -> Callable:
+        """The configuration's `render_drives`: its scan model's,
+        `odobench/sensors/<stem>.py`, or this module's."""
+        stem = config.get("scans")
+        if stem is None:
+            return render_drives
+        mod = self._module("sensors", stem)
+        if mod is None:
+            raise KeyError(f"no scan model {stem!r} (odobench/sensors/{stem}.py)")
+        return mod.render_drives
+
+    def reference(self, config: dict):
+        """The configuration's reference, `odobench/reference/<stem>.py`."""
+        stem = config.get("reference", "kiss")
+        mod = self._module("reference", stem)
+        if mod is None:
+            raise KeyError(f"no reference {stem!r} (odobench/reference/{stem}.py)")
         return mod
 
     def end_to_end(self, metric: str):
@@ -98,6 +132,22 @@ class Layout:
         raise KeyError(f"no reader for per-layer metric {metric!r}")
 
 
+def unmodelled(kiss: dict, models: Dict[str, Optional[tuple]]) -> List[str]:
+    """Each `kiss` key (`section.key`) of a configuration, with its value,
+    that `models` (a reference's `MODELS`: the values of each key it
+    models, None for any) does not hold."""
+    out = []
+    for section, keys in kiss.items():
+        items = keys.items() if isinstance(keys, dict) else [(None, keys)]
+        for key, value in items:
+            name = section if key is None else f"{section}.{key}"
+            if name not in models:
+                out.append(f"kiss.{name}")
+            elif models[name] is not None and value not in models[name]:
+                out.append(f"kiss.{name}: {value!r}")
+    return out
+
+
 def drive_seeds(seed: int, row: int):
     """(world seed, noise seed) of drive `row` of a run's `--seed`."""
     s = int(seed) % (1 << 64)
@@ -107,14 +157,24 @@ def drive_seeds(seed: int, row: int):
 
 
 def render_drives(config: dict, traffic: dict, seed: int, device) -> List[list]:
-    """The cell's drives, rendered on `device`, as host scans."""
+    """The cell's drives, rendered on `device`, as host scans. Where the
+    traffic file gives a `world_seed`, the worlds and trajectories are that
+    seed's, the same for every run, and the run's seed deals them to the
+    rows in an order of its own and draws the sensor noise: every seed then
+    asks for the same work."""
     from odobench.scans import Drive, Sensor
 
     kiss = config["kiss"]
     sensor = Sensor(**config["sensor"], max_range=float(kiss["data"]["max_range"]))
+    rows = int(traffic.get("rows", 1))
+    fixed = traffic.get("world_seed")
+    if fixed is not None:
+        order = np.random.default_rng([int(seed) % (1 << 64), 0x0DE1]).permutation(rows)
     drives = []
-    for row in range(int(traffic.get("rows", 1))):
+    for row in range(rows):
         world, noise = drive_seeds(seed, row)
+        if fixed is not None:
+            world, _ = drive_seeds(fixed, int(order[row]))
         drive = Drive(sensor, int(traffic["drive_frames"]), world_seed=world, noise_seed=noise,
                       device=device, **config["drive"])
         drives.append(drive.render())
@@ -147,12 +207,11 @@ def choose_frames(seed: int, rec, iterations: List[int], count: int, rows: int =
     return sorted(chosen)
 
 
-def check(params, drives, rec, positions: List[int], device, work_positions=()):
-    """Follow each drive the window ran with the reference, register the
-    chosen frames, and compare. Returns (largest pose gap in metres, {record
-    position: work records}, [(position, gap, reference iterations)])."""
-    from odobench.reference import kiss
-
+def check(ref, params, drives, rec, positions: List[int], device, work_positions=()):
+    """Follow each drive the window ran with the reference module `ref`,
+    register the chosen frames, and compare. Returns (largest pose gap in
+    metres, {record position: work records}, [(position, gap, reference
+    iterations)])."""
     rows = len(drives)
     by_drive: Dict[int, List[int]] = {}
     for i, (d, _) in enumerate(rec.frames):
@@ -165,12 +224,12 @@ def check(params, drives, rec, positions: List[int], device, work_positions=()):
             continue
         poses = np.stack([rec.poses[i] for i in members]).astype(np.float64)
         idx = {rec.frames[i][1]: i for i in members}
-        out = kiss.follow(params, drives[d % rows], poses, [rec.frames[i][1] for i in mine],
-                          device=device, record_work=bool(work_positions))
+        out = ref.follow(params, drives[d % rows], poses, [rec.frames[i][1] for i in mine],
+                         device=device, record_work=bool(work_positions))
         for k, (ref_pose, ref_iters, works) in out.items():
             i = idx[k]
             if i in positions:
-                g = kiss.pose_gap(params, ref_pose, rec.poses[i])
+                g = ref.pose_gap(params, ref_pose, rec.poses[i])
                 g = g if math.isfinite(g) else float("inf")
                 gap = max(gap, g)
                 frames.append((i, g, ref_iters))
@@ -236,10 +295,17 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, device,
     limits = layout.limits(workload)
     rows = int(traffic.get("rows", 1))
     dev = torch.device(device)
+    # A meaning the reference does not model would be checked as plain
+    # KISS-ICP: refused before anything runs.
+    ref = layout.reference(config)
+    refused = unmodelled(config["kiss"], ref.MODELS)
+    if refused:
+        raise SystemExit(f"odobench: {cell['config']}: reference/{Path(ref.__file__).name} "
+                         "does not model " + ", ".join(refused))
 
     # Set-up: scans on the card, the program, every call shape warmed.
     t_render = time.perf_counter()
-    drives = render_drives(config, traffic, seed, dev)
+    drives = layout.scans(config)(config, traffic, seed, dev)
     render_s = time.perf_counter() - t_render
     if system_factory is None:
         from odobench.program import Port as system_factory
@@ -268,9 +334,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, device,
         torch.cuda.empty_cache()
 
     # The check, after the window, on the card.
-    from odobench.reference import kiss
-
-    params = kiss.Params.from_config(config["kiss"])
+    params = ref.Params.from_config(config["kiss"])
     count = int(traffic["check_frames"]) if check_frames is None else int(check_frames)
     positions = choose_frames(seed, rec, iterations, count, rows)
     layer = layout.metrics("per_layer", workload) if trace else []
@@ -278,7 +342,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, device,
     traced = rec.traced_frames() if trace else []
     wants_work = any(getattr(r, "NEEDS_WORK", False) for r in readers.values())
     t_check = time.perf_counter()
-    gap, work, checked = check(params, drives, rec, positions, dev,
+    gap, work, checked = check(ref, params, drives, rec, positions, dev,
                                work_positions=traced if wants_work else ())
     check_s = time.perf_counter() - t_check
     failed = sum(1 for p in rec.poses if not np.all(np.isfinite(p)))

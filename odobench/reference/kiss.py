@@ -44,6 +44,35 @@ _SHIFTS = [(dx, dy, dz) for dx in (0, 1, -1) for dy in (0, 1, -1) for dz in (0, 
 _U32 = 0xFFFFFFFF
 _KEY_OFF = 1 << 20
 
+# The configuration's `kiss` keys this reference answers for, as
+# "section.key", each with the values it accepts (None: any). The harness
+# refuses a configuration that states any other key or value before a run
+# (odobench/harness.py `unmodelled`).
+MODELS = {
+    # Keys whose meaning it implements. The engine options' other values
+    # mean what it does not compute: a u16 map, deskew refinement, the
+    # ground fit.
+    **{f"data.{k}": None for k in ("max_range", "min_range", "deskew")},
+    **{f"mapping.{k}": None for k in ("voxel_size", "max_points_per_voxel")},
+    **{f"adaptive_threshold.{k}": None
+       for k in ("fixed_threshold", "initial_threshold", "min_motion_th")},
+    **{f"registration.{k}": None
+       for k in ("max_num_iterations", "convergence_criterion", "max_num_threads")},
+    **{f"engine.{k}": None for k in ("max_points_per_frame", "frame_capacity",
+                                     "source_capacity", "group_capacity")},
+    "engine.map_storage": ("f32",),
+    "engine.deskew_refine": (0,),
+    "engine.deskew_refine_map": (False,),
+    "engine.ground_align": (0.0,),
+    # Keys that change only the program's layout or speed, not its answers;
+    # `nn_mode` "cached" (with its `assoc_*` keys) answers otherwise.
+    **{f"engine.{k}": None for k in (
+        "map_capacity_log2", "probe_length", "nn_live_capacity_log2", "nn_probe_length",
+        "donate_state", "pipeline_chunk", "gn_unroll", "rebase_trigger_voxels", "map_shards",
+        "use_pallas")},
+    "engine.nn_mode": ("gather27", "pallas_fused", "loop27", "compact", "compact_loop"),
+}
+
 
 @dataclass(frozen=True)
 class Params:

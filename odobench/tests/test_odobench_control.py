@@ -28,7 +28,9 @@ def root(tmp_path_factory):
 
 
 def _run(root, cell, **kw):
-    return run_cell(cell, 2**32 + 77, 0.5, False, device="cpu", root=root,
+    # Long enough for a second lockstep call on a loaded CPU: its first
+    # call registers only frame 0, which the check does not compare.
+    return run_cell(cell, 2**32 + 77, 2.0, False, device="cpu", root=root,
                     log=lambda s: None, **kw)
 
 
