@@ -42,7 +42,8 @@ def nanquantile(x: torch.Tensor, q: float) -> torch.Tensor:
     one FMA (here: the exact f64 product plus the rounded f32 first
     product, rounded once to f32). `torch.nanquantile` interpolates as a
     lerp, in another order, and can move the band edge by an ulp. NaN when
-    every entry is NaN."""
+    every entry is NaN. The two ranks are read by `torch.take`: indexing by
+    a 0-dim tensor reads the index back to the host."""
     s = torch.sort(x).values  # NaNs last
     qf = f32_scalar(q, x.device)
     count = torch.sum(~torch.isnan(s), dtype=torch.int32).to(torch.float32)
@@ -53,7 +54,7 @@ def nanquantile(x: torch.Tensor, q: float) -> torch.Tensor:
     top = count - 1.0
     lo_i = torch.clamp(torch.minimum(low, top), min=0.0).to(torch.int64)
     hi_i = torch.clamp(torch.minimum(high, top), min=0.0).to(torch.int64)
-    fma = s[hi_i].double() * w_high.double() + (s[lo_i] * w_low).double()
+    fma = torch.take(s, hi_i).double() * w_high.double() + (torch.take(s, lo_i) * w_low).double()
     return fma.to(torch.float32)
 
 
@@ -107,8 +108,9 @@ def align_pose_to_ground(pose: torch.Tensor, plane: GroundPlane, alignment: floa
     is not ok, no tilt, or a non-finite correction leaves the pose as it
     was. Returns a new pose."""
     n_w = pose[:3, :3] @ plane.normal_body  # the measured normal, world frame
-    e_z = torch.zeros(3, dtype=pose.dtype, device=pose.device)
-    e_z[2] = 1.0  # device fills: no host copy on the card
+    # A row of a device identity: storing 1.0 into a CUDA tensor copies it
+    # from pageable host memory, which blocks the host.
+    e_z = torch.eye(3, dtype=pose.dtype, device=pose.device)[2]
     axis = torch.linalg.cross(n_w, e_z, dim=-1)
     s = torch.linalg.norm(axis)
     angle = torch.atan2(s, n_w[2])

@@ -40,7 +40,11 @@ launch inside a `kiss/` span. The Gauss-Newton loop on CUDA graphs
 replay) against the Python loop on the same card, bit for bit with the same
 K1/K2 launches: the single loop at gn_unroll 1 and 2 (a fresh state and a
 re-base each capture anew), four lockstep rows whose solves end at
-different trips, and the map-shard loop at map_shards 2.
+different trips, and the map-shard loop at map_shards 2. The long-drive
+deployment's options (a u16 map, ground_align 0.1) through the chunked
+path: one capture, every later trip a replay, the CPU's poses, after the
+first frame the CPU's insert of the same points bit for bit, and host
+syncs only at the f32 chunk's `kiss/sync/*` sites.
 """
 
 import numpy as np
@@ -1048,3 +1052,90 @@ def test_map_shard_loop_on_graphs_bit_identical_to_python_loop(cuda, monkeypatch
 
     iters, (k1, k2) = _assert_graph_drive(monkeypatch, run)
     assert (k1, k2) == (sum(iters), sum(iters) + len(iters) - 1)
+
+
+def test_u16_ground_chunked_drive_on_card_replays_and_matches_cpu(cuda, monkeypatch):
+    """The long-drive deployment's options (a u16 map, ground_align 0.1)
+    through the chunked path on the card: one capture, every later GN trip
+    a replay; the poses within 1e-4 m of the same drive on the CPU; the map
+    payload uint16, and after the first frame bit-equal to the CPU's insert
+    of the same world points. (The drives' own world points differ in their
+    last bits: the fit's sums and the pose's product round in another order
+    on the card, which moves a point at a quantum's edge to the next.)"""
+    from kiss_icp_tpu_torch.odometry import KissICP
+
+    cfg = _drive_config("u16", trigger=0)
+    cfg.engine.ground_align = 0.1
+    scans = _drive_scans(9)
+    inserted, first = [], {}
+    real_insert = hm.insert
+
+    def insert(mcfg, m, points, valid):
+        if not inserted:
+            inserted.append((mcfg, points.cpu().clone(), valid.cpu().clone()))
+        return real_insert(mcfg, m, points, valid)
+
+    def drive(dev):
+        icp = KissICP(cfg, device=dev)
+        poses = list(icp.register_frames_chunked([scans[0][0]], [scans[0][1]]))
+        first[dev] = {name: _bits(getattr(icp.state.map, name)).clone()
+                      for name in ("vkeys", "fprints", "counts", "points")}
+        for a in (1, 5):
+            part = scans[a:a + 4]
+            poses.extend(icp.register_frames_chunked([s[0] for s in part],
+                                                     [s[1] for s in part]))
+        assert icp.state.map.points.dtype == torch.uint16
+        return poses
+
+    monkeypatch.setattr(hm, "insert", insert)
+    (poses, _), _, (trips, _), events = _graph_drive(
+        monkeypatch, lambda: (drive("cuda"), None), True)
+    assert events == {"capture": 1, "replay": trips - 1} and trips > 8
+    mcfg, points, valid = inserted[0]
+    want, _ = real_insert(mcfg, hm.create_map(mcfg), points, valid)
+    for name, bits in first["cuda"].items():
+        assert torch.equal(bits, _bits(getattr(want, name))), name
+    assert int(want.counts.sum()) > 1000
+    np.testing.assert_allclose(np.asarray(poses), np.asarray(drive("cpu")), atol=1e-4)
+
+
+def test_u16_ground_chunk_syncs_only_at_the_f32_chunks_sites(cuda, monkeypatch):
+    """One chunk on a u16 map with ground_align 0.1, after a warm-up, under
+    torch.cuda.set_sync_debug_mode("warn"): every host sync is raised with
+    a `kiss/sync/*` span innermost, and its sites are those of the same
+    chunk on an f32 map without the fit: the fit and the u16 encode and
+    decode read nothing back."""
+    import collections
+    import warnings
+
+    from kiss_icp_tpu_torch.odometry import KissICP
+
+    scans = _drive_scans(6)
+    stack = _span_stack(monkeypatch)
+    sites = {}
+    for storage, align in (("f32", 0.0), ("u16", 0.1)):
+        cfg = _drive_config(storage, trigger=0)
+        cfg.engine.ground_align = align
+        icp = KissICP(cfg, device="cuda")
+        icp.register_frames_chunked([s[0] for s in scans[:3]], [s[1] for s in scans[:3]])
+        syncs = []
+
+        def hook(message, *args, **kwargs):
+            if "called a synchronizing CUDA operation" in str(message):
+                syncs.append(stack[-1] if stack else None)
+
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = hook
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                icp.register_frames_chunked([s[0] for s in scans[3:]],
+                                            [s[1] for s in scans[3:]])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        outside = collections.Counter(s for s in syncs
+                                      if s is None or not s.startswith("kiss/sync/"))
+        assert syncs and not outside, (storage, outside)
+        sites[storage] = set(syncs)
+    assert sites["u16"] == sites["f32"], sites
