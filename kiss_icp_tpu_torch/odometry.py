@@ -40,7 +40,7 @@ import torch
 
 from kiss_icp_tpu_torch import trace
 from kiss_icp_tpu_torch.config.schema import KISSConfig
-from kiss_icp_tpu_torch.ops import (ground, hash_map, preprocess, registration,
+from kiss_icp_tpu_torch.ops import (control, ground, hash_map, preprocess, registration,
                                     se3, threshold, voxel)
 
 
@@ -143,9 +143,12 @@ def _source_cloud(config: KISSConfig, frame_ds):
 def _finish_frame(config: KISSConfig, state: OdometryState, prep, frame_ds, source, sigma,
                   initial_guess, new_pose, pose_finite, total_iterations,
                   num_dropped_downsample, num_correspondences, num_dropped_compact,
-                  donate: bool) -> Tuple[OdometryState, FrameResult]:
+                  donate: bool, map_graph: bool, rows: int = 1
+                  ) -> Tuple[OdometryState, FrameResult]:
     """Steps 5d-9 after registration: ground alignment, the threshold's
-    model deviation, map insert and trim, the new state and the result."""
+    model deviation, map insert and trim, the new state and the result.
+    `map_graph` (with `donate`): the update may run as one CUDA graph
+    (`hash_map.update`), one for each of the caller's `rows`."""
     mcfg = map_config(config)
     # 5d. Ground-plane attitude stabilization (engine.ground_align > 0,
     #    ops/ground.py), fitted on the half-voxel cloud.
@@ -162,13 +165,20 @@ def _finish_frame(config: KISSConfig, state: OdometryState, prep, frame_ds, sour
         )
 
     # 8. Merge the scan into the local map, then trim far voxels
-    #    (reference VoxelHashMap::Update, VoxelHashMap.cpp:83-95).
-    with trace.span("kiss/map_insert"):
-        world_points = se3.transform(new_pose, frame_ds.points)
-        m = state.map if donate else copy_map(state.map)
-        new_map, insert_stats = hash_map.insert(mcfg, m, world_points, frame_ds.valid)
-    with trace.span("kiss/map_trim"):
-        new_map = hash_map.trim(mcfg, new_map, new_pose[:3, 3])
+    #    (reference VoxelHashMap::Update, VoxelHashMap.cpp:83-95). On the
+    #    card, where the step owns the map's tables, the whole update is
+    #    the replay of one CUDA graph, trim included.
+    if donate and map_graph and control.uses_graph((state.map.counts,), mcfg):
+        with trace.span("kiss/map_insert"):
+            new_map, insert_stats = hash_map.update(mcfg, state.map, new_pose, frame_ds.points,
+                                                    frame_ds.valid, keep=rows)
+    else:
+        with trace.span("kiss/map_insert"):
+            world_points = se3.transform(new_pose, frame_ds.points)
+            m = state.map if donate else copy_map(state.map)
+            new_map, insert_stats = hash_map.insert(mcfg, m, world_points, frame_ds.valid)
+        with trace.span("kiss/map_trim"):
+            new_map = hash_map.trim(mcfg, new_map, new_pose[:3, 3])
 
     # 9. Constant-velocity bookkeeping.
     new_state = OdometryState(
@@ -203,13 +213,18 @@ def register_frame(
     valid: torch.Tensor,
     *,
     donate: Optional[bool] = None,
+    map_graph: Optional[bool] = None,
 ) -> Tuple[OdometryState, FrameResult]:
     """One odometry step (reference KissICP.cpp:35-68 / kiss_icp.py:43-75).
 
     points (N, 3) f32, timestamps (N,) f32, valid (N,) bool, on the state's
     device. `donate` (default `engine.donate_state`): update the caller's
     map in place, or leave the caller's state as it was (see the module
-    docstring). The frame runs in the profiler span `kiss/frame`, each
+    docstring). `map_graph` (default `donate`): a donated map on the card
+    is updated by one CUDA graph keyed on its tables' addresses
+    (`hash_map.update`); a caller that donates a copy it made for one call
+    passes False, since that copy's tables lie elsewhere at every call.
+    The frame runs in the profiler span `kiss/frame`, each
     stage in its own `kiss/<stage>` span and each host read in a
     `kiss/sync/<site>` span (trace.py; tools/profile_drive.py reads them).
     Without a profiler a span costs one read of the profiler's flag.
@@ -280,7 +295,8 @@ def register_frame(
 
     return _finish_frame(config, state, prep, frame_ds, source, sigma, initial_guess,
                          new_pose, pose_finite, total_iterations, num_dropped_downsample,
-                         align.num_correspondences, align.num_dropped_compact, donate)
+                         align.num_correspondences, align.num_dropped_compact, donate,
+                         donate if map_graph is None else map_graph)
 
 
 def copy_map(m: hash_map.VoxelMap) -> hash_map.VoxelMap:
@@ -346,6 +362,7 @@ def register_frame_batched(
     valid: torch.Tensor,
     *,
     donate: Optional[bool] = None,
+    map_graph: Optional[bool] = None,
     linsys_fn: Optional[Callable] = None,
     any_active_fn: Optional[Callable] = None,
 ) -> Tuple[OdometryState, FrameResult]:
@@ -364,20 +381,23 @@ def register_frame_batched(
     each row runs `register_frame` on its views: the same results, with a
     frame's launches summed over the rows.
 
-    `donate` (default `engine.donate_state`) as in `register_frame`: False
-    copies the stacked map once and leaves the caller's state as it was.
+    `donate` (default `engine.donate_state`) and `map_graph` as in
+    `register_frame`: False copies the stacked map once and leaves the
+    caller's state as it was. On the card each row's map update is one CUDA
+    graph on the row's views of the stacked tables.
     `linsys_fn` and `any_active_fn` go to the lockstep loop
     (registration.align_lockstep): the "pts" axis of parallel/batch.py.
     """
     if donate is None:
         donate = bool(config.engine.donate_state)
+    map_graph = donate and map_graph is not False
     if not donate:
         state = state._replace(map=copy_map(state.map))
     n_rows = points.shape[0]
     rows = [state_row(state, b) for b in range(n_rows)]
     if not lockstep_eligible(config):
         outs = [register_frame(config, rows[b], points[b], timestamps[b], valid[b],
-                               donate=True) for b in range(n_rows)]
+                               donate=True, map_graph=map_graph) for b in range(n_rows)]
     else:
         fronts = []
         for b, row in enumerate(rows):
@@ -406,7 +426,7 @@ def register_frame_batched(
                 config, row, prep, frame_ds, source, sigma, guess, new_pose, pose_finite,
                 align.num_iterations[b], frame_ds.num_dropped + source.num_dropped,
                 align.num_correspondences[b], torch.zeros_like(align.num_iterations[b]),
-                donate=True))
+                donate=True, map_graph=map_graph, rows=n_rows))
     new_state = store_rows(state, [o[0] for o in outs])
     result = FrameResult(*(torch.stack(f) for f in zip(*(o[1] for o in outs))))
     # The state and the result share the pose tensor, as in register_frame.
@@ -462,7 +482,8 @@ class ChunkSummary(NamedTuple):
     used_fallback: torch.Tensor  # (K,) bool
 
 
-def make_chunked_step(config: KISSConfig, donate: Optional[bool] = None):
+def make_chunked_step(config: KISSConfig, donate: Optional[bool] = None,
+                      map_graph: Optional[bool] = None):
     """A K-frame advance: `step(state, points (K,N,3), timestamps (K,N),
     valid (K,N)) -> (state, ChunkSummary)`, inputs on the state's device.
 
@@ -470,10 +491,12 @@ def make_chunked_step(config: KISSConfig, donate: Optional[bool] = None):
     `lax.scan`, so this is a Python loop over `register_frame` whose state
     never leaves the device. Only the loops' scalar tests reach the host;
     the summary's scalars are stacked on the device. `donate` (default
-    `engine.donate_state`) as in `register_frame`; a chunk that does not
-    donate copies the caller's map once, and its frames update that copy."""
+    `engine.donate_state`) and `map_graph` as in `register_frame`; a chunk
+    that does not donate copies the caller's map once, and its frames
+    update that copy."""
     if donate is None:
         donate = bool(config.engine.donate_state)
+    map_graph = donate and map_graph is not False
 
     def chunk(state, points, timestamps, valid):
         if not donate:
@@ -481,7 +504,7 @@ def make_chunked_step(config: KISSConfig, donate: Optional[bool] = None):
         results = []
         for i in range(points.shape[0]):
             state, res = register_frame(config, state, points[i], timestamps[i], valid[i],
-                                        donate=True)
+                                        donate=True, map_graph=map_graph)
             results.append(res)
 
         def stacked(name):

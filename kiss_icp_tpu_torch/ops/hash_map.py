@@ -16,12 +16,16 @@ deterministic claim rounds, so a map built by either package has identical
   * inserts: deterministic scatter-min claim rounds (lowest batch row wins),
              a `control.while_loop` that carries `fprints` and `vkeys` (one
              scalar read per round when run live).
+  * updates: `update`, a step's whole map update on the card (transform,
+             insert, trim) as the replay of one CUDA graph, with the rounds
+             bounded and no host read: the same tables bit for bit.
 
 Memory: the map is 2^19 slots by default (126 MB of f32 points), so `insert`
 writes `counts` and `points` IN PLACE (the claim rounds return new `fprints`
 and `vkeys`, 8 MB) and `trim` clears slots of the map it is given in place;
 the map passed to `insert` must not be used afterwards (the JAX package
-donates the buffers for the same reason). A caller that keeps its map
+donates the buffers for the same reason; `update` writes `fprints` and
+`vkeys` in place too). A caller that keeps its map
 inserts into a copy (`odometry.register_frame` with `engine.donate_state`
 false). `rebase`, which runs every few kilometres, rebuilds into new
 tensors.
@@ -40,7 +44,7 @@ import numpy as np
 import torch
 
 from kiss_icp_tpu_torch import trace
-from kiss_icp_tpu_torch.ops import control
+from kiss_icp_tpu_torch.ops import control, se3
 from kiss_icp_tpu_torch.ops import voxel as voxel_ops
 
 # 27 neighbor offsets: the (0,0,0)-centered 3x3x3 cube, own voxel first, in
@@ -350,7 +354,7 @@ def query_topc(cfg: MapConfig, m: VoxelMap, queries: torch.Tensor,
 
 
 def _claim_slots(fprints, vkeys, coords, fp, rows, pending, *,
-                 probe_length: int, capacity: int):
+                 probe_length: int, capacity: int, bounded: bool = False):
     """Deterministic free-slot claiming for a batch of new voxels (JAX
     `hash_map._claim_slots`).
 
@@ -363,6 +367,12 @@ def _claim_slots(fprints, vkeys, coords, fp, rows, pending, *,
     winners by a fixed-shape scatter into tables one row longer, where every
     other row lands in the extra row. The claimed slots of a round are
     unique, so the outcome is deterministic, slot for slot.
+
+    `bounded`: exactly `probe_length` rounds, without a test. The pending
+    rows of a window all aim at its first free slot, so each round fills
+    one slot of every window they aim at: after `probe_length` rounds no
+    pending row can win, and a round with none pending writes the extra
+    row only. The same tables, with no host read (a CUDA graph holds it).
 
     Returns (`assigned` (V,) int64, new `fprints`, new `vkeys`); the tables
     passed in are not written.
@@ -402,11 +412,31 @@ def _claim_slots(fprints, vkeys, coords, fp, rows, pending, *,
         )
         return fpx, vkx, assigned, pending & ~won & any_free & ~now_shadowed
 
-    fpx, vkx, assigned, _ = control.while_loop(cond, body, (
-        torch.cat([fprints, fprints.new_zeros(1)]),
-        torch.cat([vkeys, vkeys.new_zeros((1, 3))]),
-        torch.full((v,), -1, dtype=torch.int64, device=dev), pending), "map_claim")
+    carry = (torch.cat([fprints, fprints.new_zeros(1)]),
+             torch.cat([vkeys, vkeys.new_zeros((1, 3))]),
+             torch.full((v,), -1, dtype=torch.int64, device=dev), pending)
+    if bounded:
+        for _ in range(k):
+            carry = body(*carry)
+    else:
+        carry = control.while_loop(cond, body, carry, "map_claim")
+    fpx, vkx, assigned, _ = carry
     return assigned, fpx[:cap], vkx[:cap]
+
+
+def _write_rows(table: torch.Tensor, slots: torch.Tensor, rows: torch.Tensor,
+                has: torch.Tensor) -> None:
+    """`table[slots[i]] = rows[i]` for every i with `has[i]` (their slots
+    unique), IN PLACE, as one write of all the rows: each other row writes
+    slot 0 with the bits slot 0 ends with (the row written there, if any,
+    else what it holds), so that all the writes to a slot carry the same
+    bits and the table ends as the write of the rows with a slot leaves it."""
+    to_0 = has & (slots == 0)
+    row_0 = rows[_first_true(to_0).view(1)][0]
+    end_0 = torch.where(torch.any(to_0), row_0, table[0])
+    dst = torch.where(has, slots, torch.zeros_like(slots))
+    lead = has.view(-1, *([1] * (rows.dim() - 1)))
+    table.index_put_((dst,), torch.where(lead, rows, end_0))
 
 
 class InsertStats(NamedTuple):
@@ -416,13 +446,18 @@ class InsertStats(NamedTuple):
 
 
 def insert(cfg: MapConfig, m: VoxelMap, points: torch.Tensor,
-           valid: torch.Tensor) -> Tuple[VoxelMap, InsertStats]:
+           valid: torch.Tensor, *, fixed: bool = False) -> Tuple[VoxelMap, InsertStats]:
     """Add one frame of world-frame points to the map: `counts` and
     `points` IN PLACE, new `fprints` and `vkeys` (see the module docstring).
 
     Mirrors VoxelHashMap::AddPoints (VoxelHashMap.cpp:97-119): group the
     frame by voxel, find-or-claim a slot per voxel, then run the sequential
     accept/reject loop over each voxel's candidates, vectorized across voxels.
+
+    `fixed` (`update`, the map update as one CUDA graph): every shape fixed
+    and no host read, with the same result bit for bit: the claim rounds
+    bounded (`_claim_slots`) and the rows written back all at once
+    (`_write_rows`) instead of through the list of rows with a slot.
     """
     k = cfg.probe_length
     p = cfg.max_points_per_voxel
@@ -456,7 +491,8 @@ def insert(cfg: MapConfig, m: VoxelMap, points: torch.Tensor,
     # Phase B: claim free slots for new voxels.
     pending0 = gvalid & ~has_existing & ~shadowed
     assigned, fprints, vkeys = _claim_slots(m.fprints, m.vkeys, coords, fp, rows, pending0,
-                                            probe_length=k, capacity=cfg.capacity)
+                                            probe_length=k, capacity=cfg.capacity,
+                                            bounded=fixed)
     dropped = torch.sum(gvalid & ~has_existing & (assigned < 0), dtype=torch.int32)
 
     slot = torch.where(has_existing, (rows << shift) + exist_pos, assigned)
@@ -488,14 +524,19 @@ def insert(cfg: MapConfig, m: VoxelMap, points: torch.Tensor,
 
     # Phase D: write rows back (re-encoded for u16 storage; the u16
     # roundtrip is a fixpoint, so untouched lanes keep their exact bits).
-    # One index list of the rows with a slot, so that every write shares
-    # its (data-dependent) length.
-    sel = trace.read("map_rows", torch.nonzero, has_slot).squeeze(1)
-    slots = slot_safe[sel]
-    stored_out = encode_points(cfg, stored[sel], coords[sel][:, None, :])
+    # Live: one index list of the rows with a slot, so that every write
+    # shares its (data-dependent) length; fixed: every row.
     bits = _BITS[m.points.dtype]
-    m.points.view(bits).index_put_((slots,), stored_out.view(bits))
-    m.counts.index_put_((slots,), cnt[sel])
+    if fixed:
+        stored_out = encode_points(cfg, stored, coords[:, None, :])
+        _write_rows(m.points.view(bits), slot_safe, stored_out.view(bits), has_slot)
+        _write_rows(m.counts, slot_safe, cnt, has_slot)
+    else:
+        sel = trace.read("map_rows", torch.nonzero, has_slot).squeeze(1)
+        slots = slot_safe[sel]
+        stored_out = encode_points(cfg, stored[sel], coords[sel][:, None, :])
+        m.points.view(bits).index_put_((slots,), stored_out.view(bits))
+        m.counts.index_put_((slots,), cnt[sel])
 
     new_map = m._replace(
         vkeys=vkeys,
@@ -520,6 +561,36 @@ def trim(cfg: MapConfig, m: VoxelMap, origin: torch.Tensor) -> VoxelMap:
     m.fprints.masked_fill_(kill, 0)
     m.counts.masked_fill_(kill, 0)
     return m._replace(total_points=m.total_points - removed)
+
+
+def update(cfg: MapConfig, m: VoxelMap, pose: torch.Tensor, points: torch.Tensor,
+           valid: torch.Tensor, *, keep: int = 1) -> Tuple[VoxelMap, InsertStats]:
+    """One frame's whole map update as the replay of one CUDA graph
+    (`control.graph_call`): the frame cloud `points` (N, 3) moved to the
+    world by `pose` (4, 4), `insert` and `trim` around the pose's position,
+    with the map and the counts that the live `insert` and `trim` give, bit
+    for bit. For a caller that owns `m` (a step that donates its state) and
+    found `control.uses_graph`.
+
+    Every table is written IN PLACE, `fprints` and `vkeys` too, so the
+    tables keep their addresses, which key this graph (the first update of
+    a set of tables captures it, every later one replays it) and the GN
+    loop's. `keep`: the sets of tables the caller updates at once (the rows
+    of a batch), whose graphs are all kept."""
+    def run(pose, points, valid, total, dropped, oob, vkeys, fprints, counts, stored):
+        new, stats = insert(cfg, VoxelMap(vkeys, fprints, counts, stored, total, dropped, oob),
+                            se3.transform(pose, points), valid, fixed=True)
+        vkeys.copy_(new.vkeys)
+        fprints.copy_(new.fprints)
+        new = trim(cfg, new._replace(vkeys=vkeys, fprints=fprints), pose[:3, 3])
+        return (new.total_points, new.num_dropped_voxels, new.num_oob_points, *stats)
+
+    out = control.graph_call(
+        run, "map", inputs=(pose, points, valid, m.total_points, m.num_dropped_voxels,
+                            m.num_oob_points),
+        tables=(m.vkeys, m.fprints, m.counts, m.points), graph_key=(cfg,), keep=keep)
+    new_map = m._replace(total_points=out[0], num_dropped_voxels=out[1], num_oob_points=out[2])
+    return new_map, InsertStats(*out[3:])
 
 
 def rebase(cfg: MapConfig, m: VoxelMap,

@@ -135,7 +135,7 @@ def make_batched_chunked_step(config: KISSConfig, mesh: Optional[DeviceMesh] = N
         launches are the sum over rows. Single-device only, as in JAX: with
         a grid it raises.
     A chunk that does not donate (`engine.donate_state` unset) copies the
-    stacked map once."""
+    stacked map once, and updates that copy without CUDA graphs."""
     if seq_mode not in ("vmap", "map"):
         raise ValueError(f"unknown seq_mode {seq_mode!r}")
     if seq_mode == "map" and mesh is not None:
@@ -143,7 +143,7 @@ def make_batched_chunked_step(config: KISSConfig, mesh: Optional[DeviceMesh] = N
             "seq_mode='map' is the single-device program; on a mesh use "
             "parallel/pod.py (per-row decoupling with uniform collectives)")
     donate = bool(config.engine.donate_state)
-    row_chunk = odometry.make_chunked_step(config, donate=True)
+    row_chunk = odometry.make_chunked_step(config, donate=True, map_graph=donate)
     opts = lockstep_options(mesh)
 
     def chunk(state, points, timestamps, valid):
@@ -155,7 +155,8 @@ def make_batched_chunked_step(config: KISSConfig, mesh: Optional[DeviceMesh] = N
             poses = []
             for k in range(points.shape[0]):
                 state, res = odometry.register_frame_batched(
-                    config, state, points[k], timestamps[k], valid[k], donate=True, **opts)
+                    config, state, points[k], timestamps[k], valid[k], donate=True,
+                    map_graph=donate, **opts)
                 poses.append(res.pose)
             return state, torch.stack(poses)
         rows, poses = [], []

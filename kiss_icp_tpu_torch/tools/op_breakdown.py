@@ -14,7 +14,9 @@ kernels' device time (as tools/profile_drive.py reads them):
     downsample_source its second kiss/downsample span (1.5 x voxel)
     nn_query          one call of the K2 operator (host us)
     gn_iteration      span kiss/align per Gauss-Newton iteration
-    insert, trim      spans kiss/map_insert, kiss/map_trim
+    insert, trim      spans kiss/map_insert, kiss/map_trim (on the card the
+                      whole update, trim included, replays one CUDA graph
+                      inside kiss/map_insert, and trim reads 0)
 
 Every part is host microseconds per frame (per call for nn_query, per
 iteration for gn_iteration): the host issues the work and the device idles

@@ -21,7 +21,10 @@ benchmark's readers take them from the trace):
     that let it run up to the next read; inside it, where the trip runs on
     a CUDA graph, `kiss/<loop>_capture` (the trip that captures it) or
     `kiss/<loop>_replay` (each later trip): a replayed trip enters none of
-    the body's spans (`kiss/solve`);
+    the body's spans (`kiss/solve`); likewise `kiss/map_capture` or
+    `kiss/map_replay` inside `kiss/map_insert`, where a step's whole map
+    update, trim included, runs on one CUDA graph (ops/hash_map.py
+    `update`);
   * `kiss/sync/<site>`: a host read of a device value (`read`), in which
     the host waits for the device.
 """

@@ -44,7 +44,15 @@ different trips, and the map-shard loop at map_shards 2. The long-drive
 deployment's options (a u16 map, ground_align 0.1) through the chunked
 path: one capture, every later trip a replay, the CPU's poses, after the
 first frame the CPU's insert of the same points bit for bit, and host
-syncs only at the f32 chunk's `kiss/sync/*` sites.
+syncs only at the f32 chunk's `kiss/sync/*` sites. The map update on one
+CUDA graph (ops/hash_map.py `update`: a donating step's transform, insert
+and trim, captured on the first update of a set of tables, replayed on
+every later one) against the live insert and trim on the same card: the
+map's tables and counters after every frame and every pose bit for bit,
+one capture a set of tables and no read of the claim rounds or the row
+list, on an f32 and a u16 + ground_align chunked drive, four lockstep rows
+(a graph a row) and a 2^9-slot map in windows of 4 whose fingerprints are
+cut to 2 bits (full windows, shadowing).
 """
 
 import numpy as np
@@ -1070,10 +1078,10 @@ def test_u16_ground_chunked_drive_on_card_replays_and_matches_cpu(cuda, monkeypa
     inserted, first = [], {}
     real_insert = hm.insert
 
-    def insert(mcfg, m, points, valid):
+    def insert(mcfg, m, points, valid, **kw):
         if not inserted:
             inserted.append((mcfg, points.cpu().clone(), valid.cpu().clone()))
-        return real_insert(mcfg, m, points, valid)
+        return real_insert(mcfg, m, points, valid, **kw)
 
     def drive(dev):
         icp = KissICP(cfg, device=dev)
@@ -1104,7 +1112,8 @@ def test_u16_ground_chunk_syncs_only_at_the_f32_chunks_sites(cuda, monkeypatch):
     torch.cuda.set_sync_debug_mode("warn"): every host sync is raised with
     a `kiss/sync/*` span innermost, and its sites are those of the same
     chunk on an f32 map without the fit: the fit and the u16 encode and
-    decode read nothing back."""
+    decode read nothing back. Neither reads the map update's claim rounds
+    or row list: the update replays one CUDA graph (hash_map.update)."""
     import collections
     import warnings
 
@@ -1138,4 +1147,179 @@ def test_u16_ground_chunk_syncs_only_at_the_f32_chunks_sites(cuda, monkeypatch):
                                       if s is None or not s.startswith("kiss/sync/"))
         assert syncs and not outside, (storage, outside)
         sites[storage] = set(syncs)
+        assert not sites[storage] & {"kiss/sync/map_claim", "kiss/sync/map_rows"}, sites
     assert sites["u16"] == sites["f32"], sites
+
+
+# --- The map update on one CUDA graph (ops/hash_map.py update) ---------------
+
+
+def _map_graph_drive(monkeypatch, run, graphs):
+    """`run()` (a drive: returns its poses and anything) with the map update
+    (and the GN loop) on CUDA graphs (`graphs`) or live, recording every
+    map's tables and counters after each update (`odometry._finish_frame`),
+    the map graphs' captures and replays, and the host reads by site."""
+    import collections
+
+    from kiss_icp_tpu_torch import odometry, trace
+    from kiss_icp_tpu_torch.ops import control
+
+    control.clear_graphs()
+    events, sites, maps = collections.Counter(), collections.Counter(), []
+    real_capture, real_replay = control.CallGraph.capture, control.CallGraph.replay
+    real_finish, real_read = odometry._finish_frame, trace.read
+
+    def capture(self, *args):
+        events["capture"] += 1
+        return real_capture(self, *args)
+
+    def replay(self):
+        events["replay"] += 1
+        return real_replay(self)
+
+    def finish(*args, **kwargs):
+        state, result = real_finish(*args, **kwargs)
+        maps.append([_bits(t).clone() for t in state.map])
+        return state, result
+
+    def read(site, fn, *args):
+        sites[site] += 1
+        return real_read(site, fn, *args)
+
+    with monkeypatch.context() as mp:
+        mp.setattr(control.CallGraph, "capture", capture)
+        mp.setattr(control.CallGraph, "replay", replay)
+        mp.setattr(odometry, "_finish_frame", finish)
+        mp.setattr(trace, "read", read)
+        if not graphs:
+            mp.setattr(control, "uses_graph", lambda carry, key: False)
+        poses = run()
+        torch.cuda.synchronize()
+    control.clear_graphs()
+    return poses, maps, events, sites
+
+
+def _assert_map_graph_drive(monkeypatch, run, tables=1):
+    """The drive with its map updates on graphs gives the live drive's
+    poses and, after every update, its `vkeys`, `fprints`, `counts`,
+    `points`, `total_points`, `num_dropped_voxels` and `num_oob_points`,
+    bit for bit; one capture for each set of map tables (`tables`), every
+    other update a replay; no read of the claim rounds or the row list."""
+    poses, maps, events, sites = _map_graph_drive(monkeypatch, run, True)
+    ref_poses, ref_maps, ref_events, ref_sites = _map_graph_drive(monkeypatch, run, False)
+    assert len(poses) == len(ref_poses) > 0
+    for a, b in zip(poses, ref_poses):
+        assert torch.equal(torch.as_tensor(np.asarray(a)), torch.as_tensor(np.asarray(b)))
+    assert len(maps) == len(ref_maps) > tables
+    for i, (got, want) in enumerate(zip(maps, ref_maps)):
+        for name, a, b in zip(hm.VoxelMap._fields, got, want):
+            assert torch.equal(a, b), (i, name)
+    assert not ref_events
+    assert events == {"capture": tables, "replay": len(maps) - tables}
+    assert ref_sites["map_rows"] == len(ref_maps) and ref_sites["map_claim"] > len(ref_maps)
+    assert sites["map_rows"] == sites["map_claim"] == 0
+    return maps
+
+
+@pytest.mark.parametrize("options", ["f32", "u16_ground"])
+def test_chunked_drive_map_graph_bit_equal_to_live_update(cuda, monkeypatch, options):
+    """9 frames through KissICP's chunked path (chunks of 3), an f32 map,
+    and a u16 map with ground_align 0.1 (the soak cell's options)."""
+    from kiss_icp_tpu_torch.odometry import KissICP
+
+    cfg = _drive_config("f32" if options == "f32" else "u16", trigger=0)
+    if options != "f32":
+        cfg.engine.ground_align = 0.1
+    scans = _drive_scans(9)
+
+    def run():
+        icp = KissICP(cfg, device="cuda")
+        poses = []
+        for a in range(0, 9, 3):
+            part = scans[a:a + 3]
+            poses.extend(icp.register_frames_chunked([s[0] for s in part],
+                                                     [s[1] for s in part]))
+        return poses
+
+    maps = _assert_map_graph_drive(monkeypatch, run)
+    assert int(maps[-1][4]) > 1000
+
+
+def test_lockstep_rows_map_graphs_bit_equal_to_live_update(cuda, monkeypatch):
+    """Four rows through the lockstep batched step for 8 frames: a map
+    graph for each row's views of the stacked tables."""
+    from kiss_icp_tpu_torch.parallel import batch as pbatch
+
+    cfg = KISSConfig()
+    cfg.data.max_range = 50.0
+    cfg.data.min_range = 1.0
+    cfg.mapping.voxel_size = 0.5
+    cfg.engine.max_points_per_frame = 4096
+    cfg.engine.frame_capacity = 4096
+    cfg.engine.source_capacity = 1024
+    cfg.engine.map_capacity_log2 = 15
+    b, k = 4, 8
+    rng = np.random.default_rng(2)
+    base = rng.uniform(-30, 30, (b, 4096, 3)).astype(np.float32)
+    vel = np.arange(1, b + 1)[:, None, None].astype(np.float32) * np.float32([0.15, 0.02, 0.0])
+    pts = np.stack([base + vel * i for i in range(k)])
+    ts, valid = np.zeros((k, b, 4096), np.float32), np.ones((k, b, 4096), bool)
+
+    def run():
+        step = pbatch.make_batched_step(cfg, pbatch.make_mesh(device="cuda"))
+        state = pbatch.init_batched_state(cfg, b, "cuda")
+        poses = []
+        for i in range(k):
+            state, res = step(state, pts[i], ts[i], valid[i])
+            poses.append(res.pose.cpu())
+        return poses
+
+    _assert_map_graph_drive(monkeypatch, run, tables=b)
+
+
+def test_small_map_graph_full_windows_and_shadowing(cuda, monkeypatch):
+    """2^9 slots in windows of 4 and fingerprints cut to 2 bits (shadowing
+    is common): 8 frames of random points through `hash_map.update` on the
+    card against the live insert and trim, every table, counter and
+    statistic bit for bit after every frame; voxels are dropped."""
+    import collections
+
+    from kiss_icp_tpu_torch.ops import control
+
+    cfg = hm.MapConfig(voxel_size=1.0, max_distance=14.0, max_points_per_voxel=8,
+                       capacity_log2=9, probe_length=4, group_capacity=8)
+    real_fp = hm.fingerprint
+    monkeypatch.setattr(hm, "fingerprint", lambda c: (real_fp(c) & 6) | 1)
+    events = collections.Counter()
+    real_capture, real_replay = control.CallGraph.capture, control.CallGraph.replay
+
+    def capture(self, *args):
+        events["capture"] += 1
+        return real_capture(self, *args)
+
+    def replay(self):
+        events["replay"] += 1
+        return real_replay(self)
+
+    monkeypatch.setattr(control.CallGraph, "capture", capture)
+    monkeypatch.setattr(control.CallGraph, "replay", replay)
+    control.clear_graphs()
+    rng = np.random.default_rng(4)
+    live, graphed = hm.create_map(cfg, cuda), hm.create_map(cfg, cuda)
+    dropped = 0
+    for i in range(8):
+        pose = torch.eye(4, device=cuda)
+        pose[:3, 3] = torch.tensor([1.5 * i, -0.5 * i, 0.0], device=cuda)
+        pts = torch.from_numpy(rng.uniform(-12, 12, (3000, 3)).astype(np.float32)).to(cuda)
+        valid = torch.from_numpy(rng.random(3000) < 0.9).to(cuda)
+        live, live_stats = hm.insert(cfg, live, se3.transform(pose, pts), valid)
+        live = hm.trim(cfg, live, pose[:3, 3])
+        graphed, stats = hm.update(cfg, graphed, pose, pts, valid)
+        for name, a, b in zip(hm.VoxelMap._fields, graphed, live):
+            assert torch.equal(_bits(a), _bits(b)), (i, name)
+        for a, b in zip(stats, live_stats):
+            assert torch.equal(a, b), i
+        dropped += int(live_stats.num_dropped_voxels)
+    control.clear_graphs()
+    assert events == {"capture": 1, "replay": 7}
+    assert dropped > 0 and int(live.total_points) > 0

@@ -30,6 +30,7 @@ import pytest
 import torch
 
 import torch_gn_count
+import torch_graph_emulation
 from kiss_icp_tpu_torch import odometry
 from kiss_icp_tpu_torch.config.schema import KISSConfig
 from kiss_icp_tpu_torch.datasets.synthetic import SyntheticDataset
@@ -90,7 +91,8 @@ def _loop_calls(monkeypatch):
 def _emulated_graphs(monkeypatch):
     """Graphs wherever a loop gives a key (as on the card), each capture and
     replay run in Python on the TripGraph's buffers; returns the count of
-    captures and replays."""
+    captures and replays. The map update's graph is emulated too
+    (tests/torch_graph_emulation.py), uncounted here."""
     events = {"capture": 0, "replay": 0}
 
     def capture(self, cond_fn, body_fn, tables):
@@ -109,9 +111,7 @@ def _emulated_graphs(monkeypatch):
 
         self.parts, self.launched = [SimpleNamespace(replay=replay)], ()
 
-    control.clear_graphs()
-    monkeypatch.setattr(control, "uses_graph",
-                        lambda carry, key: key is not None and not control.tracing())
+    torch_graph_emulation.emulate(monkeypatch)
     monkeypatch.setattr(control.TripGraph, "capture", capture)
     return events
 
