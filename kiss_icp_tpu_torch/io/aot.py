@@ -2,8 +2,9 @@
 
 Port of `kiss_icp_tpu/io/aot.py`. `torch.export.export` traces
 `odometry.register_frame` for one config into an `ExportedProgram`: its ATen
-graph, with the ICP loop and the map's claim rounds as `torch.while_loop`,
-the empty-map shortcut as `torch.cond` (ops/control.py), and the two kernels
+graph, with the ICP loop as `torch.while_loop` (the map's claim rounds
+are `probe_length` plain rounds), the empty-map shortcut as `torch.cond`
+(ops/control.py), and the two kernels
 as the registered operators `kiss_icp_torch::linsys` (K1) and
 `kiss_icp_torch::nn27` (K2). `torch.export.save` serializes it; a serving
 process loads it and calls it without tracing the port's code.

@@ -4,11 +4,12 @@ Port of the core of `kiss_icp_tpu/odometry.py` (reference KissICP.cpp:35-68 /
 kiss_icp.py:43-75): `register_frame(config, state, scan) -> (state, result)`
 deskews, downsamples twice, registers against the local map with the
 adaptive threshold, and updates the map. PyTorch runs eagerly, so the step is
-plain Python over device tensors. Its loops (the ICP iterations, the map's
-claim rounds) and its one branch (the empty map) are `ops/control.py`
-loops and branches over their carry: run live, they read one scalar per
-test; traced by `torch.export` (io/aot.py), they become `torch.while_loop`
-and `torch.cond`, so the whole step exports as one program.
+plain Python over device tensors. Its loop (the ICP iterations) and its
+one branch (the empty map) are an `ops/control.py` loop and branch over
+their carry: run live, they read one scalar per test; traced by
+`torch.export` (io/aot.py), they become `torch.while_loop` and
+`torch.cond`, so the whole step exports as one program. The map update
+reads nothing back (ops/hash_map.py `update`).
 
 `engine.donate_state` decides what happens to the caller's state, as in the
 JAX package (`make_step`). True: the map (2^19 slots by default) is updated
@@ -40,8 +41,8 @@ import torch
 
 from kiss_icp_tpu_torch import trace
 from kiss_icp_tpu_torch.config.schema import KISSConfig
-from kiss_icp_tpu_torch.ops import (control, ground, hash_map, preprocess, registration,
-                                    se3, threshold, voxel)
+from kiss_icp_tpu_torch.ops import (ground, hash_map, preprocess, registration, se3,
+                                    threshold, voxel)
 
 
 class OdometryState(NamedTuple):
@@ -165,20 +166,10 @@ def _finish_frame(config: KISSConfig, state: OdometryState, prep, frame_ds, sour
         )
 
     # 8. Merge the scan into the local map, then trim far voxels
-    #    (reference VoxelHashMap::Update, VoxelHashMap.cpp:83-95). On the
-    #    card, where the step owns the map's tables, the whole update is
-    #    the replay of one CUDA graph, trim included.
-    if donate and map_graph and control.uses_graph((state.map.counts,), mcfg):
-        with trace.span("kiss/map_insert"):
-            new_map, insert_stats = hash_map.update(mcfg, state.map, new_pose, frame_ds.points,
-                                                    frame_ds.valid, keep=rows)
-    else:
-        with trace.span("kiss/map_insert"):
-            world_points = se3.transform(new_pose, frame_ds.points)
-            m = state.map if donate else copy_map(state.map)
-            new_map, insert_stats = hash_map.insert(mcfg, m, world_points, frame_ds.valid)
-        with trace.span("kiss/map_trim"):
-            new_map = hash_map.trim(mcfg, new_map, new_pose[:3, 3])
+    #    (reference VoxelHashMap::Update, VoxelHashMap.cpp:83-95).
+    new_map, insert_stats = hash_map.update(
+        mcfg, state.map if donate else copy_map(state.map), new_pose, frame_ds.points,
+        frame_ds.valid, graph=donate and map_graph, keep=rows)
 
     # 9. Constant-velocity bookkeeping.
     new_state = OdometryState(
@@ -327,17 +318,10 @@ def state_row(state: OdometryState, b: int) -> OdometryState:
 
 
 def store_rows(state: OdometryState, rows) -> OdometryState:
-    """The stacked state whose row b is `rows[b]`: each map table is written
-    into the stacked table where the row's step returned a new tensor (the
-    steps update counts and points in place, through the views of
-    `state_row`); the small leaves are stacked anew."""
+    """The stacked state whose row b is `rows[b]`: the rows' steps wrote
+    the map tables in place, through the views of `state_row`; the small
+    leaves are stacked anew."""
     m = state.map
-    for b, row in enumerate(rows):
-        for name in ("vkeys", "fprints", "counts", "points"):
-            dst, src = getattr(m, name)[b], getattr(row.map, name)
-            if src.data_ptr() != dst.data_ptr():
-                bits = hash_map._BITS.get(dst.dtype, dst.dtype)
-                dst.view(bits).copy_(src.view(bits))
 
     def stacked(get):
         return torch.stack([get(r) for r in rows])
@@ -582,6 +566,24 @@ def subsample_to_capacity(frame, timestamps, cap: int):
     return frame[sel], timestamps, n - cap
 
 
+def pad_scan(frame, timestamps, pts: np.ndarray, ts: np.ndarray, valid: np.ndarray) -> int:
+    """Write one scan into the padded row buffers `pts` (cap, 3), `ts`
+    (cap,) and `valid` (cap,), every element: the scan, stride-subsampled
+    above the capacity (`subsample_to_capacity`), then a zero tail; stamps
+    that do not match the scan are zeros. Returns the points the subsample
+    dropped."""
+    frame, timestamps, dropped = subsample_to_capacity(frame, timestamps, pts.shape[0])
+    n = frame.shape[0]
+    pts[:n] = frame[:, :3]
+    pts[n:] = 0.0
+    ts[:] = 0.0
+    if timestamps is not None and len(timestamps) == n:
+        ts[:n] = timestamps
+    valid[:n] = True
+    valid[n:] = False
+    return dropped
+
+
 def create_odometry(config: KISSConfig, device=None) -> "KissICP":
     """Engine factory used by the pipeline, the CLI and the ROS node: the
     single-device KissICP, or for `engine.map_shards > 1` the map-sharded
@@ -628,23 +630,6 @@ class KissICP:
         """One frame on the device, donating the state (the engine owns it)."""
         return register_frame(self.config, state, points, timestamps, valid, donate=True)
 
-    def _pad_into(self, frame: np.ndarray, timestamps, pts: np.ndarray,
-                  ts: np.ndarray, valid: np.ndarray) -> None:
-        """Write one scan into padded (cap, ...) buffers, stride-subsampled
-        when it is above capacity (the drop is counted)."""
-        frame, timestamps, dropped = subsample_to_capacity(
-            frame, timestamps, self._capacity)
-        self.last_input_dropped = dropped
-        self.total_input_dropped += dropped
-        n = frame.shape[0]
-        pts[:n] = frame[:, :3]
-        pts[n:] = 0.0
-        ts[:] = 0.0
-        if timestamps is not None and len(timestamps) == n:
-            ts[:n] = timestamps
-        valid[:n] = True
-        valid[n:] = False
-
     @trace.spanned("kiss/pack")
     def build_chunk(self, frames, timestamps_list=None) -> Tuple[PackedChunk, int]:
         """Pack K numpy scans into one padded chunk buffer, 17 B a point
@@ -661,7 +646,8 @@ class KissICP:
         drops_before = self.total_input_dropped
         for i, f in enumerate(frames):
             t = None if timestamps_list is None else timestamps_list[i]
-            self._pad_into(np.asarray(f), t, pts[i], ts[i], valid[i])
+            self.last_input_dropped = pad_scan(f, t, pts[i], ts[i], valid[i])
+            self.total_input_dropped += self.last_input_dropped
         return PackedChunk(packed, pts, ts, valid), self.total_input_dropped - drops_before
 
     @trace.spanned("kiss/h2d")

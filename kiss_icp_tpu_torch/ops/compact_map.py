@@ -6,8 +6,8 @@ are packed, in slot order, into a dense view:
 
   * `ckeys / ccounts / cpoints`: the live voxels in `live_capacity` rows;
   * `hfp / hval`: a small open-addressing index (fingerprint -> row), four
-    times the live capacity, built by the same deterministic scatter-min
-    claim rounds as `hash_map._claim_slots` (a `control.while_loop`: one
+    times the live capacity, built by the deterministic scatter-min claim
+    rounds of `hash_map._claim_slots`, here a `control.while_loop` (one
     host read per round when run live).
 
 The JAX package queries the view in these modes; its answers are those of

@@ -1,8 +1,9 @@
 """Structured control flow: one body, run three ways.
 
-The step's loops (the Gauss-Newton iterations, the map's claim rounds) and
-its one branch (the empty-map shortcut) are written as functions of their
-carry, as the JAX package writes them for `lax.while_loop` / `lax.cond`.
+The step's loops (the Gauss-Newton iterations, the compact view's claim
+rounds) and its one branch (the empty-map shortcut) are written as
+functions of their carry, as the JAX package writes them for
+`lax.while_loop` / `lax.cond`.
 
   * Under a trace (`torch.export.export`, or `torch.compile`), where
     `torch.compiler.is_compiling()` is true, the helpers emit

@@ -14,21 +14,18 @@ deterministic claim rounds, so a map built by either package has identical
   * queries: `query_nearest` is the plain PyTorch version of the fused NN
              kernel (kernels/nn27.py), which the GN loop uses on CUDA tensors.
   * inserts: deterministic scatter-min claim rounds (lowest batch row wins),
-             a `control.while_loop` that carries `fprints` and `vkeys` (one
-             scalar read per round when run live).
-  * updates: `update`, a step's whole map update on the card (transform,
-             insert, trim) as the replay of one CUDA graph, with the rounds
-             bounded and no host read: the same tables bit for bit.
+             exactly `probe_length` of them, with no host read.
+  * updates: `update`, a step's whole map update (transform, insert, trim):
+             on the card, for a caller that owns the tables, the replay of
+             one CUDA graph; elsewhere the same work called directly.
 
 Memory: the map is 2^19 slots by default (126 MB of f32 points), so `insert`
-writes `counts` and `points` IN PLACE (the claim rounds return new `fprints`
-and `vkeys`, 8 MB) and `trim` clears slots of the map it is given in place;
-the map passed to `insert` must not be used afterwards (the JAX package
-donates the buffers for the same reason; `update` writes `fprints` and
-`vkeys` in place too). A caller that keeps its map
-inserts into a copy (`odometry.register_frame` with `engine.donate_state`
-false). `rebase`, which runs every few kilometres, rebuilds into new
-tensors.
+and `trim` write every table of the map they are given IN PLACE, and return
+a map that holds the same tables: the map passed to `insert` must not be
+used afterwards (the JAX package donates the buffers for the same reason).
+A caller that keeps its map inserts into a copy (`odometry.register_frame`
+with `engine.donate_state` false). `rebase`, which runs every few
+kilometres, rebuilds into new tensors.
 
 uint32 hashing is computed in int64 with the low 32 bits masked after every
 multiply (the int64 product may wrap; its low 32 bits stay right), and right
@@ -354,7 +351,7 @@ def query_topc(cfg: MapConfig, m: VoxelMap, queries: torch.Tensor,
 
 
 def _claim_slots(fprints, vkeys, coords, fp, rows, pending, *,
-                 probe_length: int, capacity: int, bounded: bool = False):
+                 probe_length: int, capacity: int):
     """Deterministic free-slot claiming for a batch of new voxels (JAX
     `hash_map._claim_slots`).
 
@@ -362,17 +359,17 @@ def _claim_slots(fprints, vkeys, coords, fp, rows, pending, *,
     rounds let the lowest row index win a contested slot. Rows whose window
     is full, or whose fingerprint would shadow a DIFFERENT voxel's equal
     fingerprint in the window, end unassigned (-1) — a counted drop, never a
-    silent hole. The rounds are a `control.while_loop` (one scalar read per
-    round when run live) that carries the tables: each round writes its
-    winners by a fixed-shape scatter into tables one row longer, where every
-    other row lands in the extra row. The claimed slots of a round are
-    unique, so the outcome is deterministic, slot for slot.
+    silent hole. Each round writes its winners by a fixed-shape scatter into
+    tables one row longer, where every other row lands in the extra row. The
+    claimed slots of a round are unique, so the outcome is deterministic,
+    slot for slot.
 
-    `bounded`: exactly `probe_length` rounds, without a test. The pending
-    rows of a window all aim at its first free slot, so each round fills
-    one slot of every window they aim at: after `probe_length` rounds no
-    pending row can win, and a round with none pending writes the extra
-    row only. The same tables, with no host read (a CUDA graph holds it).
+    JAX rounds until no row is pending; this runs exactly `probe_length`
+    rounds, with no test and no host read (a CUDA graph holds them), and
+    ends with the same tables. The pending rows of a window all aim at its
+    first free slot, so each round fills one slot of every window they aim
+    at: after `probe_length` rounds no pending row can win, and a round
+    with none pending writes the extra row only.
 
     Returns (`assigned` (V,) int64, new `fprints`, new `vkeys`); the tables
     passed in are not written.
@@ -383,11 +380,10 @@ def _claim_slots(fprints, vkeys, coords, fp, rows, pending, *,
     dev = coords.device
     row_ids = torch.arange(v, dtype=torch.int64, device=dev)
     dump = torch.full_like(row_ids, cap)
-
-    def cond(fpx, vkx, assigned, pending):
-        return torch.any(pending)
-
-    def body(fpx, vkx, assigned, pending):
+    fpx = torch.cat([fprints, fprints.new_zeros(1)])
+    vkx = torch.cat([vkeys, vkeys.new_zeros((1, 3))])
+    assigned = torch.full((v,), -1, dtype=torch.int64, device=dev)
+    for _ in range(k):
         free = _window_fp(fpx[:cap], rows, k) == 0  # (V, K)
         any_free = torch.any(free, dim=-1)
         tgt_slot = (rows << shift) + _first_true(free)
@@ -410,17 +406,7 @@ def _claim_slots(fprints, vkeys, coords, fp, rows, pending, *,
             & ~torch.all(wk2 == coords[:, None, :], dim=-1),
             dim=-1,
         )
-        return fpx, vkx, assigned, pending & ~won & any_free & ~now_shadowed
-
-    carry = (torch.cat([fprints, fprints.new_zeros(1)]),
-             torch.cat([vkeys, vkeys.new_zeros((1, 3))]),
-             torch.full((v,), -1, dtype=torch.int64, device=dev), pending)
-    if bounded:
-        for _ in range(k):
-            carry = body(*carry)
-    else:
-        carry = control.while_loop(cond, body, carry, "map_claim")
-    fpx, vkx, assigned, _ = carry
+        pending = pending & ~won & any_free & ~now_shadowed
     return assigned, fpx[:cap], vkx[:cap]
 
 
@@ -446,18 +432,15 @@ class InsertStats(NamedTuple):
 
 
 def insert(cfg: MapConfig, m: VoxelMap, points: torch.Tensor,
-           valid: torch.Tensor, *, fixed: bool = False) -> Tuple[VoxelMap, InsertStats]:
-    """Add one frame of world-frame points to the map: `counts` and
-    `points` IN PLACE, new `fprints` and `vkeys` (see the module docstring).
+           valid: torch.Tensor) -> Tuple[VoxelMap, InsertStats]:
+    """Add one frame of world-frame points to the map, every table IN
+    PLACE (see the module docstring); the returned map holds `m`'s tables.
 
     Mirrors VoxelHashMap::AddPoints (VoxelHashMap.cpp:97-119): group the
     frame by voxel, find-or-claim a slot per voxel, then run the sequential
     accept/reject loop over each voxel's candidates, vectorized across voxels.
-
-    `fixed` (`update`, the map update as one CUDA graph): every shape fixed
-    and no host read, with the same result bit for bit: the claim rounds
-    bounded (`_claim_slots`) and the rows written back all at once
-    (`_write_rows`) instead of through the list of rows with a slot.
+    Every shape is fixed and nothing is read back to the host, so a CUDA
+    graph holds the whole insert (`update`).
     """
     k = cfg.probe_length
     p = cfg.max_points_per_voxel
@@ -491,8 +474,7 @@ def insert(cfg: MapConfig, m: VoxelMap, points: torch.Tensor,
     # Phase B: claim free slots for new voxels.
     pending0 = gvalid & ~has_existing & ~shadowed
     assigned, fprints, vkeys = _claim_slots(m.fprints, m.vkeys, coords, fp, rows, pending0,
-                                            probe_length=k, capacity=cfg.capacity,
-                                            bounded=fixed)
+                                            probe_length=k, capacity=cfg.capacity)
     dropped = torch.sum(gvalid & ~has_existing & (assigned < 0), dtype=torch.int32)
 
     slot = torch.where(has_existing, (rows << shift) + exist_pos, assigned)
@@ -522,25 +504,17 @@ def insert(cfg: MapConfig, m: VoxelMap, points: torch.Tensor,
         cnt = cnt + accept.to(torch.int32)
         added = added + torch.sum(accept, dtype=torch.int32)
 
-    # Phase D: write rows back (re-encoded for u16 storage; the u16
-    # roundtrip is a fixpoint, so untouched lanes keep their exact bits).
-    # Live: one index list of the rows with a slot, so that every write
-    # shares its (data-dependent) length; fixed: every row.
+    # Phase D: write every row back (re-encoded for u16 storage; the u16
+    # roundtrip is a fixpoint, so untouched lanes keep their exact bits),
+    # then the claimed fingerprints and keys.
     bits = _BITS[m.points.dtype]
-    if fixed:
-        stored_out = encode_points(cfg, stored, coords[:, None, :])
-        _write_rows(m.points.view(bits), slot_safe, stored_out.view(bits), has_slot)
-        _write_rows(m.counts, slot_safe, cnt, has_slot)
-    else:
-        sel = trace.read("map_rows", torch.nonzero, has_slot).squeeze(1)
-        slots = slot_safe[sel]
-        stored_out = encode_points(cfg, stored[sel], coords[sel][:, None, :])
-        m.points.view(bits).index_put_((slots,), stored_out.view(bits))
-        m.counts.index_put_((slots,), cnt[sel])
+    stored_out = encode_points(cfg, stored, coords[:, None, :])
+    _write_rows(m.points.view(bits), slot_safe, stored_out.view(bits), has_slot)
+    _write_rows(m.counts, slot_safe, cnt, has_slot)
+    m.vkeys.copy_(vkeys)
+    m.fprints.copy_(fprints)
 
     new_map = m._replace(
-        vkeys=vkeys,
-        fprints=fprints,
         total_points=m.total_points + added,
         num_dropped_voxels=m.num_dropped_voxels + dropped,
         num_oob_points=m.num_oob_points + num_oob,
@@ -564,31 +538,37 @@ def trim(cfg: MapConfig, m: VoxelMap, origin: torch.Tensor) -> VoxelMap:
 
 
 def update(cfg: MapConfig, m: VoxelMap, pose: torch.Tensor, points: torch.Tensor,
-           valid: torch.Tensor, *, keep: int = 1) -> Tuple[VoxelMap, InsertStats]:
-    """One frame's whole map update as the replay of one CUDA graph
-    (`control.graph_call`): the frame cloud `points` (N, 3) moved to the
-    world by `pose` (4, 4), `insert` and `trim` around the pose's position,
-    with the map and the counts that the live `insert` and `trim` give, bit
-    for bit. For a caller that owns `m` (a step that donates its state) and
-    found `control.uses_graph`.
+           valid: torch.Tensor, *, graph: bool = True, keep: int = 1
+           ) -> Tuple[VoxelMap, InsertStats]:
+    """One frame's whole map update: the frame cloud `points` (N, 3) moved
+    to the world by `pose` (4, 4), `insert`, then `trim` around the pose's
+    position, every table IN PLACE, in the spans `kiss/map_insert` and
+    `kiss/map_trim`.
 
-    Every table is written IN PLACE, `fprints` and `vkeys` too, so the
-    tables keep their addresses, which key this graph (the first update of
-    a set of tables captures it, every later one replays it) and the GN
-    loop's. `keep`: the sets of tables the caller updates at once (the rows
-    of a batch), whose graphs are all kept."""
+    `graph`: the caller owns `m`'s tables (a step that donates its state),
+    so that where `control.uses_graph` holds (CUDA tensors, no trace) the
+    update is the replay of one CUDA graph (`control.graph_call`) inside
+    `kiss/map_insert`: the tables keep their addresses, which key this
+    graph (the first update of a set of tables captures it, every later one
+    replays it) and the GN loop's. `keep`: the sets of tables the caller
+    updates at once (the rows of a batch), whose graphs are all kept.
+    Elsewhere the same work is called directly."""
     def run(pose, points, valid, total, dropped, oob, vkeys, fprints, counts, stored):
         new, stats = insert(cfg, VoxelMap(vkeys, fprints, counts, stored, total, dropped, oob),
-                            se3.transform(pose, points), valid, fixed=True)
-        vkeys.copy_(new.vkeys)
-        fprints.copy_(new.fprints)
-        new = trim(cfg, new._replace(vkeys=vkeys, fprints=fprints), pose[:3, 3])
+                            se3.transform(pose, points), valid)
+        new = trim(cfg, new, pose[:3, 3])
         return (new.total_points, new.num_dropped_voxels, new.num_oob_points, *stats)
 
-    out = control.graph_call(
-        run, "map", inputs=(pose, points, valid, m.total_points, m.num_dropped_voxels,
-                            m.num_oob_points),
-        tables=(m.vkeys, m.fprints, m.counts, m.points), graph_key=(cfg,), keep=keep)
+    inputs = (pose, points, valid, m.total_points, m.num_dropped_voxels, m.num_oob_points)
+    tables = (m.vkeys, m.fprints, m.counts, m.points)
+    if not (graph and control.uses_graph(inputs + tables, (cfg,))):
+        with trace.span("kiss/map_insert"):
+            new_map, stats = insert(cfg, m, se3.transform(pose, points), valid)
+        with trace.span("kiss/map_trim"):
+            return trim(cfg, new_map, pose[:3, 3]), stats
+    with trace.span("kiss/map_insert"):
+        out = control.graph_call(run, "map", inputs=inputs, tables=tables, graph_key=(cfg,),
+                                 keep=keep)
     new_map = m._replace(total_points=out[0], num_dropped_voxels=out[1], num_oob_points=out[2])
     return new_map, InsertStats(*out[3:])
 

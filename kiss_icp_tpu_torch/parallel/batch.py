@@ -195,19 +195,12 @@ class BatchedOdometry:
         bias an azimuth-ordered scan)."""
         assert len(frames) == self.batch
         with trace.span("kiss/pack"):
-            pts = np.zeros((self.batch, self._cap, 3), np.float32)
-            ts = np.zeros((self.batch, self._cap), np.float32)
-            valid = np.zeros((self.batch, self._cap), bool)
-            self.last_input_dropped = 0
-            for i, f in enumerate(frames):
-                t = None if timestamps is None else timestamps[i]
-                f, t, dropped = odometry.subsample_to_capacity(f, t, self._cap)
-                self.last_input_dropped += dropped
-                n = len(f)
-                pts[i, :n] = f[:, :3]
-                valid[i, :n] = True
-                if t is not None and len(t) == n:
-                    ts[i, :n] = np.asarray(t)
+            pts = np.empty((self.batch, self._cap, 3), np.float32)
+            ts = np.empty((self.batch, self._cap), np.float32)
+            valid = np.empty((self.batch, self._cap), bool)
+            self.last_input_dropped = sum(
+                odometry.pad_scan(f, None if timestamps is None else timestamps[i],
+                                  pts[i], ts[i], valid[i]) for i, f in enumerate(frames))
         self.total_input_dropped += self.last_input_dropped
         self.state, self.last_result = odometry.register_frame_batched(
             self.config, self.state, *_on(self.mesh.device, pts, ts, valid), donate=True,

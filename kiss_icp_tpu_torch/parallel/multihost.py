@@ -130,23 +130,15 @@ class MultihostBatchedOdometry:
         stride-subsampled with drop accounting (`total_input_dropped`)."""
         lb = self.local_batch
         assert len(frames) == lb, (len(frames), lb)
-        pts = np.zeros((lb, self._cap, 3), np.float32)
-        ts = np.zeros((lb, self._cap), np.float32)
-        valid = np.zeros((lb, self._cap), bool)
-        self.last_input_dropped = 0
-        for i, f in enumerate(frames):
-            t = None if timestamps is None else timestamps[i]
-            f, t, dropped = odometry.subsample_to_capacity(f, t, self._cap)
-            self.last_input_dropped += dropped
-            n = len(f)
-            pts[i, :n] = f[:, :3]
-            valid[i, :n] = True
-            if t is not None and len(t) == n:
-                ts[i, :n] = np.asarray(t)
+        pts = np.empty((lb, self._cap, 3), np.float32)
+        ts = np.empty((lb, self._cap), np.float32)
+        valid = np.empty((lb, self._cap), bool)
+        self.last_input_dropped = sum(
+            odometry.pad_scan(f, None if timestamps is None else timestamps[i],
+                              pts[i], ts[i], valid[i]) for i, f in enumerate(frames))
         self.total_input_dropped += self.last_input_dropped
-        dev = self.mesh.device
         self.state, self.last_result = odometry.register_frame_batched(
-            self.config, self.state, *(torch.as_tensor(a, device=dev) for a in (pts, ts, valid)),
+            self.config, self.state, *pbatch._on(self.mesh.device, pts, ts, valid),
             donate=True, **self._opts)
         return self._seq.gather_host(self.last_result.pose).numpy()
 

@@ -30,6 +30,7 @@ from kiss_icp_tpu_torch import odometry
 from kiss_icp_tpu_torch.config.schema import KISSConfig
 from kiss_icp_tpu_torch.ops import threshold
 from kiss_icp_tpu_torch.parallel import sharded_map
+from kiss_icp_tpu_torch.parallel.batch import _on
 from kiss_icp_tpu_torch.parallel.grid import DeviceMesh, GridAxis, process_axes, world
 from kiss_icp_tpu_torch.parallel.sharded_map import MAP_AXIS, ShardedMapState, ShardFrameResult
 
@@ -132,8 +133,7 @@ def make_pod_chunked_step(config: KISSConfig, mesh: DeviceMesh, donate: Optional
     donate = bool(config.engine.donate_state) if donate is None else donate
 
     def step(state: PodState, points, timestamps, valid):
-        points, timestamps, valid = (
-            torch.as_tensor(a, device=mesh.device) for a in (points, timestamps, valid))
+        points, timestamps, valid = _on(mesh.device, points, timestamps, valid)
         local = state.pose.shape[0]
         if points.shape[0] != local:  # the global batch: this rank's rows
             lo = seq.index * local
@@ -192,20 +192,13 @@ class PodOdometry:
                 f"{[len(seq) for seq in frames]} (pad short sequences with "
                 "empty scans or trim to the shortest)")
         cap = self._cap
-        pts = np.zeros((b, k, cap, 3), np.float32)
-        ts = np.zeros((b, k, cap), np.float32)
-        valid = np.zeros((b, k, cap), bool)
-        self.last_input_dropped = 0
-        for i in range(b):
-            for j in range(k):
-                t = None if timestamps is None else timestamps[i][j]
-                f, t, dropped = odometry.subsample_to_capacity(frames[i][j], t, cap)
-                self.last_input_dropped += dropped
-                n = len(f)
-                pts[i, j, :n] = f[:, :3]
-                valid[i, j, :n] = True
-                if t is not None and len(t) == n:
-                    ts[i, j, :n] = t
+        pts = np.empty((b, k, cap, 3), np.float32)
+        ts = np.empty((b, k, cap), np.float32)
+        valid = np.empty((b, k, cap), bool)
+        self.last_input_dropped = sum(
+            odometry.pad_scan(frames[i][j], None if timestamps is None else timestamps[i][j],
+                              pts[i, j], ts[i, j], valid[i, j])
+            for i in range(b) for j in range(k))
         self.total_input_dropped += self.last_input_dropped
         self.state, results = self._step(self.state, pts, ts, valid)
         self.last_results = results

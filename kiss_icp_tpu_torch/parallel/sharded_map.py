@@ -49,6 +49,7 @@ import torch
 from kiss_icp_tpu_torch import odometry
 from kiss_icp_tpu_torch.config.schema import KISSConfig
 from kiss_icp_tpu_torch.ops import ground, hash_map, registration, se3, threshold, voxel
+from kiss_icp_tpu_torch.parallel.batch import _on
 from kiss_icp_tpu_torch.parallel.grid import DeviceMesh, GridAxis, process_axes, world
 
 MAP_AXIS = "map"
@@ -307,8 +308,6 @@ def frame_step_shard(
         new_m, ins = hash_map.insert(mcfg_local, m, world_points,
                                      frame_ds.valid & (owner == rows[r]))
         new_m = hash_map.trim(mcfg_local, new_m, new_pose[:3, 3])
-        m_rows.vkeys[r].copy_(new_m.vkeys)
-        m_rows.fprints[r].copy_(new_m.fprints)
         totals.append(new_m.total_points)
         drops.append(new_m.num_dropped_voxels)
         oobs.append(new_m.num_oob_points)
@@ -341,10 +340,6 @@ def frame_step_shard(
         source_valid=source.valid if with_points else None,
     )
     return new_state, result
-
-
-def _on(device, *arrays):
-    return tuple(torch.as_tensor(a, device=device) for a in arrays)
 
 
 def make_map_sharded_step(config: KISSConfig, mesh: DeviceMesh, with_points: bool = False):

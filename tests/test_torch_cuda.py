@@ -47,10 +47,10 @@ first frame the CPU's insert of the same points bit for bit, and host
 syncs only at the f32 chunk's `kiss/sync/*` sites. The map update on one
 CUDA graph (ops/hash_map.py `update`: a donating step's transform, insert
 and trim, captured on the first update of a set of tables, replayed on
-every later one) against the live insert and trim on the same card: the
-map's tables and counters after every frame and every pose bit for bit,
-one capture a set of tables and no read of the claim rounds or the row
-list, on an f32 and a u16 + ground_align chunked drive, four lockstep rows
+every later one) against the same update called directly on the same
+card: the map's tables and counters after every frame and every pose bit
+for bit, one capture a set of tables and no read in the update on either
+path, on an f32 and a u16 + ground_align chunked drive, four lockstep rows
 (a graph a row) and a 2^9-slot map in windows of 4 whose fingerprints are
 cut to 2 bits (full windows, shadowing).
 """
@@ -1112,8 +1112,8 @@ def test_u16_ground_chunk_syncs_only_at_the_f32_chunks_sites(cuda, monkeypatch):
     torch.cuda.set_sync_debug_mode("warn"): every host sync is raised with
     a `kiss/sync/*` span innermost, and its sites are those of the same
     chunk on an f32 map without the fit: the fit and the u16 encode and
-    decode read nothing back. Neither reads the map update's claim rounds
-    or row list: the update replays one CUDA graph (hash_map.update)."""
+    decode read nothing back. Neither reads in the map update, which
+    replays one CUDA graph (hash_map.update)."""
     import collections
     import warnings
 
@@ -1156,7 +1156,7 @@ def test_u16_ground_chunk_syncs_only_at_the_f32_chunks_sites(cuda, monkeypatch):
 
 def _map_graph_drive(monkeypatch, run, graphs):
     """`run()` (a drive: returns its poses and anything) with the map update
-    (and the GN loop) on CUDA graphs (`graphs`) or live, recording every
+    (and the GN loop) on CUDA graphs (`graphs`) or direct, recording every
     map's tables and counters after each update (`odometry._finish_frame`),
     the map graphs' captures and replays, and the host reads by site."""
     import collections
@@ -1200,11 +1200,12 @@ def _map_graph_drive(monkeypatch, run, graphs):
 
 
 def _assert_map_graph_drive(monkeypatch, run, tables=1):
-    """The drive with its map updates on graphs gives the live drive's
-    poses and, after every update, its `vkeys`, `fprints`, `counts`,
-    `points`, `total_points`, `num_dropped_voxels` and `num_oob_points`,
-    bit for bit; one capture for each set of map tables (`tables`), every
-    other update a replay; no read of the claim rounds or the row list."""
+    """The drive with its map updates on graphs gives the poses of the
+    drive with the direct update and, after every update, its `vkeys`,
+    `fprints`, `counts`, `points`, `total_points`, `num_dropped_voxels` and
+    `num_oob_points`, bit for bit; one capture for each set of map tables
+    (`tables`), every other update a replay; neither drive reads a map
+    site back but the registration's empty-map test."""
     poses, maps, events, sites = _map_graph_drive(monkeypatch, run, True)
     ref_poses, ref_maps, ref_events, ref_sites = _map_graph_drive(monkeypatch, run, False)
     assert len(poses) == len(ref_poses) > 0
@@ -1216,8 +1217,8 @@ def _assert_map_graph_drive(monkeypatch, run, tables=1):
             assert torch.equal(a, b), (i, name)
     assert not ref_events
     assert events == {"capture": tables, "replay": len(maps) - tables}
-    assert ref_sites["map_rows"] == len(ref_maps) and ref_sites["map_claim"] > len(ref_maps)
-    assert sites["map_rows"] == sites["map_claim"] == 0
+    for got in (sites, ref_sites):
+        assert {s for s in got if s.startswith("map_")} <= {"map_empty"}, got
     return maps
 
 
@@ -1280,8 +1281,9 @@ def test_lockstep_rows_map_graphs_bit_equal_to_live_update(cuda, monkeypatch):
 def test_small_map_graph_full_windows_and_shadowing(cuda, monkeypatch):
     """2^9 slots in windows of 4 and fingerprints cut to 2 bits (shadowing
     is common): 8 frames of random points through `hash_map.update` on the
-    card against the live insert and trim, every table, counter and
-    statistic bit for bit after every frame; voxels are dropped."""
+    card's graph against `insert` and `trim` called directly, every table,
+    counter and statistic bit for bit after every frame; voxels are
+    dropped."""
     import collections
 
     from kiss_icp_tpu_torch.ops import control

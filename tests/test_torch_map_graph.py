@@ -1,25 +1,26 @@
-"""The map update as one CUDA graph (ops/hash_map.py `update`,
-ops/control.py `graph_call`), on the CPU.
+"""The map update (ops/hash_map.py `update`), direct or as one CUDA graph
+(ops/control.py `graph_call`), on the CPU.
 
-On the card a donating step's whole map update (the frame cloud to the
-world, insert, trim) is the replay of one CUDA graph, which the card tests
-of tests/test_torch_cuda.py hold to the live insert and trim bit for bit.
-Here, without a card:
+A frame's map update (the frame cloud to the world, insert, trim) writes
+the map's tables in place and reads nothing back, on every path. On the
+card, where a step owns the tables, it is the replay of one CUDA graph,
+which the card tests of tests/test_torch_cuda.py hold to the direct update
+bit for bit. Here, without a card:
 
-  * the bounded claim rounds (`probe_length` rounds, no test) give the
-    loop's `assigned`, `fprints` and `vkeys`, on random tables with full
-    windows, shadowing and fingerprint collisions, and the loop itself never
-    runs more than `probe_length` + 1 rounds;
+  * the claim rounds (`probe_length` of them, no test) give JAX's
+    `assigned`, `fprints` and `vkeys` (`kiss_icp_tpu.ops.hash_map.
+    _claim_slots`, which rounds until none is pending), on random tables
+    with full windows, shadowing and fingerprint collisions;
   * the fixed-shape write-back (`_write_rows`) leaves the table as the
     write of the rows with a slot does, slot 0 included, and `insert`
-    with `fixed` equals the live `insert`, f32 and u16;
+    equals JAX's `insert`, f32 and u16, in `m`'s own tables;
   * the graph's key is a pure function of the map's configuration, the
     shapes and the tables' addresses;
   * CPU tensors, `torch.export`, a step that does not donate, `rebase` and
-    `map_shards` > 1 keep the live insert and trim;
+    `map_shards` > 1 capture no map graph, and their update reads nothing;
   * with each capture and replay emulated in Python
     (tests/torch_graph_emulation.py), a single drive, a u16 drive with the
-    ground fit, a chunked drive and three lockstep rows give the live
+    ground fit, a chunked drive and three lockstep rows give the direct
     drive's poses and maps bit for bit, capture once for each set of map
     tables, replay every other update inside `kiss/map_insert` and read
     nothing back in the map;
@@ -29,11 +30,14 @@ Here, without a card:
 import collections
 from types import SimpleNamespace
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import torch_graph_emulation
+from kiss_icp_tpu.ops import hash_map as jhm
 from kiss_icp_tpu_torch import odometry
 from kiss_icp_tpu_torch.config.schema import KISSConfig
 from kiss_icp_tpu_torch.datasets.synthetic import SyntheticDataset
@@ -78,7 +82,14 @@ def _same_map(a, b):
         assert x.dtype == y.dtype and torch.equal(x, y), name
 
 
-# --- the bounded claim rounds ------------------------------------------------
+def _np(t):
+    """A tensor's values as numpy (u16 through its int16 bits)."""
+    if t.dtype == torch.uint16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+# --- the claim rounds against JAX's ------------------------------------------
 
 
 def _claim_case(rng, k):
@@ -100,36 +111,43 @@ def _claim_case(rng, k):
     return (t(fprints), t(vkeys), t(coords), t(fp), t(rows).to(torch.int64), t(pending)), cap
 
 
+_jax_claim_slots = jax.jit(jhm._claim_slots, static_argnames=("probe_length", "capacity"))
+
+
+def _jax_claim(args, k, cap):
+    """JAX's claim of a case, with its new voxels padded to 4k + 8 rows by
+    rows that are not pending (they never claim, and the rows before them
+    win as they would alone), so that JAX compiles once a table size.
+    Returns JAX's (fprints, vkeys, assigned) of the case's rows."""
+    fprints, vkeys, coords, fp, rows, pending = (a.numpy() for a in args)
+    v, pad = coords.shape[0], 4 * k + 8 - coords.shape[0]
+    fp_, vk_, assigned = _jax_claim_slots(
+        jnp.asarray(fprints), jnp.asarray(vkeys),
+        jnp.asarray(np.pad(coords, ((0, pad), (0, 0)))), jnp.asarray(np.pad(fp, (0, pad))),
+        jnp.asarray(np.pad(rows, (0, pad)).astype(np.int32)),
+        jnp.asarray(np.pad(pending, (0, pad))), probe_length=k, capacity=cap)
+    return fp_, vk_, np.asarray(assigned)[:v]
+
+
 @pytest.mark.parametrize("k", [2, 4, 8, 16])
-def test_bounded_claim_rounds_equal_the_loop(k, monkeypatch):
-    """75 random cases a probe length: the same `assigned`, `fprints` and
-    `vkeys`; the loop's rounds never pass `probe_length` + 1."""
+def test_bounded_claim_rounds_equal_the_loop(k):
+    """75 random cases a probe length: the port's `probe_length` rounds give
+    the `assigned`, `fprints` and `vkeys` of JAX's loop, which runs until
+    no row is pending; some cases drop rows and some fill two or more slots
+    of one window (two rounds or more)."""
     rng = np.random.default_rng(k)
-    rounds = []
-    real = control.while_loop
-
-    def counted(cond_fn, body_fn, carry, name, **kw):
-        n = [0]
-
-        def body(*c):
-            n[0] += 1
-            return body_fn(*c)
-
-        out = real(cond_fn, body, carry, name, **kw)
-        rounds.append(n[0])
-        return out
-
-    monkeypatch.setattr(control, "while_loop", counted)
-    drops = 0
+    drops, most = 0, 0
     for _ in range(75):
         args, cap = _claim_case(rng, k)
-        kw = dict(probe_length=k, capacity=cap)
-        loop = hm._claim_slots(*args, **kw)
-        bounded = hm._claim_slots(*args, **kw, bounded=True)
-        for a, b in zip(loop, bounded):
-            assert torch.equal(a, b)
-        drops += int(((loop[0] < 0) & args[5]).sum())
-    assert max(rounds) <= k + 1 and max(rounds) >= 2 and drops > 0
+        assigned, fprints, vkeys = hm._claim_slots(*args, probe_length=k, capacity=cap)
+        want_fp, want_vk, want_assigned = _jax_claim(args, k, cap)
+        np.testing.assert_array_equal(assigned.numpy(), np.asarray(want_assigned))
+        np.testing.assert_array_equal(fprints.numpy(), np.asarray(want_fp))
+        np.testing.assert_array_equal(vkeys.numpy(), np.asarray(want_vk))
+        drops += int(((assigned < 0) & args[5]).sum())
+        won = assigned[assigned >= 0] // k
+        most = max(most, int(torch.bincount(won).max()) if won.numel() else 0)
+    assert drops > 0 and most >= 2
 
 
 # --- the fixed-shape write-back ----------------------------------------------
@@ -172,25 +190,26 @@ def _insert_case(storage, capacity_log2, probe_length, seed):
     return cfg, m, pts, torch.from_numpy(rng.random(2000) < 0.9)
 
 
-def _copy(m):
-    return hm.VoxelMap(*(t.clone() for t in m))
-
-
 @pytest.mark.parametrize("storage", ["f32", "u16"])
 @pytest.mark.parametrize("capacity_log2,probe_length", [(13, 16), (7, 4)])
 def test_fixed_insert_equals_the_live_insert(storage, capacity_log2, probe_length):
-    """`insert(fixed=True)` against the live `insert` on a part-filled map
-    (2^7 slots and windows of 4: full windows and dropped voxels): every
-    table, counter and statistic bit for bit."""
+    """`insert` against JAX's `insert` on a part-filled map (2^7 slots and
+    windows of 4: full windows and dropped voxels): every table, counter
+    and statistic bit for bit, written into the tables of the map given."""
     cfg, m, pts, valid = _insert_case(storage, capacity_log2, probe_length, capacity_log2)
-    live, live_stats = hm.insert(cfg, _copy(m), pts, valid)
-    fixed, fixed_stats = hm.insert(cfg, _copy(m), pts, valid, fixed=True)
-    _same_map(fixed, live)
-    for a, b in zip(fixed_stats, live_stats):
-        assert torch.equal(a, b)
-    assert int(live_stats.num_added_points) > 0
+    jm = jhm.VoxelMap(*(jnp.asarray(_np(t)) for t in m))
+    want, want_stats = jhm.insert(jhm.MapConfig(**cfg.__dict__), jm, jnp.asarray(pts.numpy()),
+                                  jnp.asarray(valid.numpy()))
+    got, stats = hm.insert(cfg, m, pts, valid)
+    for name, a, b in zip(hm.VoxelMap._fields, got, want):
+        np.testing.assert_array_equal(_np(a), np.asarray(b), err_msg=name)
+    for a, b in zip(stats, want_stats):
+        assert int(a) == int(b)
+    for name in ("vkeys", "fprints", "counts", "points"):
+        assert getattr(got, name) is getattr(m, name), name
+    assert int(stats.num_added_points) > 0
     if capacity_log2 == 7:
-        assert int(live_stats.num_dropped_voxels) > 0
+        assert int(stats.num_dropped_voxels) > 0
 
 
 # --- the key -----------------------------------------------------------------
@@ -250,57 +269,75 @@ def test_graph_cache_keeps_every_row_and_the_loops(monkeypatch):
     assert control._kept("gn", "gn") is None
 
 
-# --- where the live insert and trim stay -------------------------------------
+# --- where the update runs directly ------------------------------------------
 
 
-def _refuse_update(monkeypatch):
+def _refuse_graph_call(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("the map update took the graph path")
 
-    monkeypatch.setattr(hm, "update", refuse)
+    monkeypatch.setattr(control, "graph_call", refuse)
+
+
+def _update_reads(events):
+    """The host reads (`kiss/sync/*`) made inside a map update's spans."""
+    def in_update(e):
+        while e is not None:
+            if e.name in ("kiss/map_insert", "kiss/map_trim"):
+                return True
+            e = e.cpu_parent
+        return False
+
+    return [e.name for e in events if e.name.startswith("kiss/sync/") and in_update(e)]
 
 
 def test_cpu_keeps_the_live_update(scans, monkeypatch):
-    """Without emulation a CPU drive never reaches `hash_map.update`, and
-    reads the claim rounds and the row list back as before."""
-    _refuse_update(monkeypatch)
+    """Without emulation a CPU drive captures no map graph: each frame's
+    update is `kiss/map_insert`, then `kiss/map_trim` beside it (not inside
+    it: `map_ms` sums both), and reads nothing back."""
+    _refuse_graph_call(monkeypatch)
     icp = odometry.KissICP(_config(), device="cpu")
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         for f, t in scans[:3]:
             icp.register_frame(f, t)
-    names = collections.Counter(e.name for e in prof.events())
-    assert names["kiss/map_trim"] == names["kiss/sync/map_rows"] == 3
-    assert names["kiss/sync/map_claim"] > 3 and names["kiss/map_replay"] == 0
+    events = [e for e in prof.events() if e.name.startswith("kiss/")]
+    names = collections.Counter(e.name for e in events)
+    assert names["kiss/map_insert"] == names["kiss/map_trim"] == 3
+    assert {e.cpu_parent.name for e in events
+            if e.name in ("kiss/map_insert", "kiss/map_trim")} == {"kiss/frame"}
+    assert not _update_reads(events) and names["kiss/map_replay"] == 0
+    assert {n for n in names if n.startswith("kiss/sync/map_")} == {"kiss/sync/map_empty"}
 
 
 def test_export_keeps_the_claim_loop(monkeypatch):
     """With graphs emulated for every key, a donating step exported by
-    io/aot.py captures nothing and keeps the claim rounds' while_loop."""
+    io/aot.py captures nothing; it holds the GN while_loop and no other
+    (the claim rounds are `probe_length` plain rounds)."""
     c = _config()
     c.engine.max_points_per_frame = 512
     c.engine.frame_capacity = 512
     c.engine.source_capacity = 128
     c.registration.max_num_iterations = 5
     events = torch_graph_emulation.emulate(monkeypatch)
-    _refuse_update(monkeypatch)
+    _refuse_graph_call(monkeypatch)
     import io
     ep = torch.export.load(io.BytesIO(aot.export_step(c, device="cpu")))
     loops = [node for gm in ep.graph_module.modules() if isinstance(gm, torch.fx.GraphModule)
              for node in gm.graph.nodes
              if node.op == "call_function" and "while_loop" in str(node.target)]
-    assert len(loops) >= 2  # the GN loop and the claim rounds
+    assert len(loops) == 1
     assert not events
 
 
 @pytest.mark.parametrize("path", ["step", "chunk", "batched_chunk"])
 def test_non_donating_steps_keep_the_live_update(scans, monkeypatch, path):
     """`donate_state` false, with graphs emulated: the step leaves the
-    caller's state as it was and updates its copy by the live insert and
-    trim, as the per-frame step, the chunk and the batched chunk."""
+    caller's state as it was and updates its copy directly, capturing no
+    map graph, as the per-frame step, the chunk and the batched chunk."""
     c = _config()
     c.engine.donate_state = False
-    torch_graph_emulation.emulate(monkeypatch)
-    _refuse_update(monkeypatch)
+    events = torch_graph_emulation.emulate(monkeypatch)
+    _refuse_graph_call(monkeypatch)
     pts = torch.from_numpy(np.asarray(scans[0][0][:2048], np.float32))
     n = pts.shape[0]
     ts, valid = torch.zeros(n), torch.ones(n, dtype=torch.bool)
@@ -318,13 +355,14 @@ def test_non_donating_steps_keep_the_live_update(scans, monkeypatch, path):
     for a, b in zip(torch.utils._pytree.tree_leaves(state), before):
         assert torch.equal(a, b)
     assert int(new.map.total_points.sum()) > 0
+    assert not [e for e in events if e.startswith("CallGraph")]
 
 
 def test_rebase_and_map_shards_keep_the_live_path(scans, monkeypatch):
-    """With graphs emulated: a re-base rebuilds the map by the live claim
-    rounds into new tables, so the next update captures anew; the drive
-    gives the live drive's poses. The map-sharded engine never reaches
-    `hash_map.update`."""
+    """With graphs emulated: a re-base rebuilds the map into new tables, so
+    the next update captures anew; the drive gives the direct drive's poses
+    and map. The map-sharded engine captures no map graph, and its frames'
+    updates read nothing back."""
     def drive():
         icp = odometry.KissICP(_config(), device="cpu")
         poses = []
@@ -347,15 +385,20 @@ def test_rebase_and_map_shards_keep_the_live_path(scans, monkeypatch):
     c = _config()
     c.engine.map_shards = 2
     with monkeypatch.context() as mp:
-        torch_graph_emulation.emulate(mp)
-        _refuse_update(mp)
+        events = torch_graph_emulation.emulate(mp)
+        _refuse_graph_call(mp)
         icp = odometry.create_odometry(c, device="cpu")
-        for f, t in scans[:3]:
-            icp.register_frame(f, t)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            for f, t in scans[:3]:
+                icp.register_frame(f, t)
     control.clear_graphs()
+    assert not [e for e in events if e.startswith("CallGraph")]
+    assert not {e.name for e in prof.events() if e.name.startswith("kiss/sync/map_")} \
+        - {"kiss/sync/map_empty"}
+    assert int(icp.state.total_points.sum()) > 0
 
 
-# --- emulated drives against the live ones -----------------------------------
+# --- emulated drives against the direct ones ---------------------------------
 
 
 def _single(config):
@@ -394,9 +437,10 @@ DRIVES = {"f32": (_single(_config()), 1), "u16_ground": (_single(_config("u16", 
 
 @pytest.mark.parametrize("path", sorted(DRIVES))
 def test_emulated_map_graphs_give_the_live_drive(scans, monkeypatch, path):
-    """Poses and every map table and counter bit-equal to the live drive;
-    one capture for each set of tables, a replay for every other update,
-    each inside `kiss/map_insert`; no map read and no `kiss/map_trim`."""
+    """Poses and every map table and counter bit-equal to the same drive
+    with the direct update (no emulation); one capture for each set of
+    tables, a replay for every other update, each inside `kiss/map_insert`;
+    no map read and no `kiss/map_trim`."""
     drive, tables = DRIVES[path]
     live_poses, live_maps, updates = drive(scans)
     with monkeypatch.context() as mp:

@@ -6,8 +6,9 @@ u16 map included). Each loop and branch of the step written on
 ops/control.py gives the same carry, bit for bit, run live (a Python loop)
 and through `torch.export` of a small wrapper (a `torch.while_loop` /
 `torch.cond`): the GN loop and the empty-map branch, the cached loop with
-forced re-gathers, the insert's claim rounds on contested slots and a full
-window, and the compact view's claim rounds. A live drive never enters
+forced re-gathers, and the compact view's claim rounds; so do the insert's
+claim rounds (`probe_length` plain rounds) on contested slots and a full
+window, and the whole insert. A live drive never enters
 dynamo, so the live path never pays `torch.compile` for them.
 """
 
@@ -155,8 +156,8 @@ def test_insert_claim_rounds_export_like_eager():
 
 
 def test_insert_exports_like_eager():
-    """The whole insert (claim rounds, then the rows written back through
-    one data-dependent index list) on a map that already holds voxels."""
+    """The whole insert (claim rounds, then every row written back in
+    place) on a map that already holds voxels."""
     cfg, m = _map(capacity_log2=12)
     pts = torch.from_numpy(
         np.random.default_rng(9).uniform(-25, 25, (2000, 3)).astype(np.float32))
